@@ -1,0 +1,223 @@
+"""Decode-only orchestration of the port: model container -> eval datasets
+-> long-form greedy decode -> SegLST -> tcpWER, single process, one device.
+
+Counterpart of the decode part of ts_asr_whisper_tpu/train.py
+(``make_generation_config`` :34-78, ``ModelTrainer._build_eval``,
+``evaluate_dataset``, ``do_eval`` and the ``decode_only`` branch of
+``train``). Training, pre-training, SE-DiCoW enrollments, weight re-init
+and multi-device decode are not ported yet and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ts_asr_whisper_tpu.config import Cfg, load_config
+from ts_asr_whisper_tpu.data.collators import DataCollator
+from ts_asr_whisper_tpu.decoding.generation_config import GenerationConfig
+from ts_asr_whisper_tpu.eval import native
+from ts_asr_whisper_tpu.training.dataloader import eval_batches
+from ts_asr_whisper_tpu.txt_norm import get_text_norm
+from ts_asr_whisper_tpu.utils.logging_def import get_logger
+
+from .data.datasets import build_datasets
+from .decoding.longform import longform_generate
+from .eval.metrics import compute_longform_metrics
+from .models.containers import WhisperContainer
+
+logger = get_logger(__name__)
+
+
+def make_generation_config(container: WhisperContainer, cfg: Cfg,
+                           predict_timestamps: bool = True
+                           ) -> GenerationConfig:
+    """update_generation_config equivalent (train.py:34-78)."""
+    tok = container.tokenizer
+    mc = container.model_config
+    kw = dict(
+        max_length=cfg.training.generation_max_length,
+        num_beams=cfg.training.generation_num_beams,
+        decoder_start_token_id=mc.decoder_start_token_id,
+        eos_token_id=mc.eos_token_id,
+        pad_token_id=mc.pad_token_id,
+        bos_token_id=mc.bos_token_id,
+        no_timestamps_token_id=mc.no_timestamps_token_id,
+        return_timestamps=predict_timestamps,
+        ctc_weight=cfg.decoding.decoding_ctc_weight or 0.0,
+        length_penalty=cfg.decoding.length_penalty or 1.0,
+        repetition_penalty=cfg.decoding.repetition_penalty,
+        cross_kv_quant=cfg.decoding.cross_kv_quant,
+        ctc_p_bf16=cfg.decoding.ctc_p_bf16,
+        ctc_psi_impl=cfg.decoding.ctc_psi_impl,
+        joint_debug=cfg.decoding.joint_decode_debug,
+        begin_suppress_tokens=(),
+        max_initial_timestamp_index=None,
+    )
+    if cfg.decoding.condition_on_prev:
+        raise NotImplementedError(
+            "condition_on_prev is not supported (matches the reference)")
+    model_dir = Path(cfg.model.whisper_model)
+    gen_json = model_dir / "generation_config.json"
+    if model_dir.exists() and gen_json.exists():
+        gc = GenerationConfig.from_json(str(gen_json), **kw)
+        if not gc.lang_ids and hasattr(tok, "lang_to_id"):
+            gc = dataclasses.replace(
+                gc, lang_ids=tuple(sorted(tok.lang_to_id.values())))
+        return gc
+    if hasattr(tok, "lang_to_id"):
+        kw["lang_ids"] = tuple(sorted(tok.lang_to_id.values()))
+    return GenerationConfig(**kw)
+
+
+def load_decode_config(overrides) -> Cfg:
+    """The JAX CLI's config composition (base.yaml + ``+group=name`` +
+    dotted overrides) for one device; the explicit device count keeps
+    config.py from asking jax for one."""
+    return load_config(list(overrides), n_devices=1)
+
+
+def check_scope(cfg: Cfg) -> None:
+    """Refuse the parts of a config that this slice of the port lacks."""
+    t = cfg.training
+    if t.pretrain_encoder:
+        raise NotImplementedError("encoder pre-training is not ported yet")
+    if not t.decode_only:
+        raise NotImplementedError("training is not ported yet (set "
+                                  "training.decode_only=true)")
+    if cfg.data.use_enrollments or cfg.model.use_enrollments:
+        raise NotImplementedError("SE-DiCoW enrollments are not ported yet")
+    if cfg.model.reinit_encoder_from or cfg.model.reinit_from:
+        raise NotImplementedError("model.reinit_* loaders are not ported yet")
+    if t.mesh_shape and math.prod(t.mesh_shape) > 1:
+        raise NotImplementedError("multi-device decode is not ported yet")
+
+
+def scoring_backend() -> str:
+    """'native' when the C++ tcpWER matchers (native/tclev.cc) load or
+    build, else 'numpy' (eval/native.py's fallback)."""
+    return "native" if native._load() is not None else "numpy"
+
+
+def default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+class DecodeRunner:
+    def __init__(self, cfg: Cfg, device: Optional[torch.device] = None):
+        check_scope(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device or default_device())
+        self.container = WhisperContainer(cfg, self.device,
+                                          seed=cfg.training.seed)
+        self.eval_text_norm = get_text_norm(cfg.data.eval_text_norm)
+        self.eval_datasets = self._build_eval(cfg.data.eval_cutsets,
+                                              cfg.data.eval_diar_cutsets)
+        self.collator = DataCollator(
+            tokenizer=self.container.tokenizer,
+            bos_token_id=self.container.model_config.bos_token_id,
+            max_length=cfg.training.generation_max_length)
+        self.gen_cfg = make_generation_config(
+            self.container, cfg, predict_timestamps=cfg.data.use_timestamps)
+        self.windows_decoded = 0  # row-windows, seek re-decodes included
+
+    def _build_eval(self, cutset_paths, diar_paths) -> Dict[str, object]:
+        if not cutset_paths:
+            return {}
+        existing = [p for p in cutset_paths if Path(p).exists()
+                    or Path(str(p).replace("_external_enrollment",
+                                           "")).exists()]
+        if not existing:
+            logger.warning("No eval cutsets found among %s", cutset_paths)
+            return {}
+        return build_datasets(
+            existing, self.cfg.data, self.eval_text_norm,
+            self.container.model_config.num_mel_bins,
+            diar_cutset_paths=diar_paths if self.cfg.data.use_diar else None)
+
+    def evaluate_dataset(self, dataset, output_dir: str) -> Dict[str, float]:
+        tok = self.container.tokenizer
+        model = self.container.model
+        preds = []  # (batch_index, sequences, label keys) per decoded batch
+        bs = self.cfg.training.per_device_eval_batch_size
+        for bi, batch in eval_batches(dataset, self.collator, bs,
+                                      pad_to_full=True):
+            forced = batch.get("forced_decoder_ids")
+            # no language from the dataset -> detection on the first window
+            detect = forced is None and bool(self.gen_cfg.lang_ids)
+            if forced is None:
+                prefix = np.asarray(tok.prefix_tokens[:3], dtype=np.int64)
+                forced = np.tile(prefix,
+                                 (batch["input_features"].shape[0], 1))
+            out = longform_generate(
+                model, self.gen_cfg, batch["input_features"],
+                batch["stno_mask"], batch["attention_mask"], forced,
+                detect_lang=detect)
+            self.windows_decoded += out.windows_decoded
+            batch_keys = []
+            for row in batch["labels"]:
+                row = row[row != -100]
+                batch_keys.append(tok.decode(row, skip_special_tokens=True))
+            preds.append((bi, [np.asarray(s) for s in out.sequences],
+                          batch_keys))
+        preds.sort(key=lambda p: p[0])
+        return compute_longform_metrics(
+            [s for _, ps, _ in preds for s in ps],
+            [k for _, _, ks in preds for k in ks],
+            dataset, tok, output_dir, self.eval_text_norm,
+            metrics_list=self.cfg.training.eval_metrics_list,
+            save_visualizations=self.cfg.training.save_visualizations)
+
+    def do_eval(self, datasets: Dict[str, object]) -> Dict[str, float]:
+        """Decode and score each dataset as the JAX package's final test
+        evaluation does (train.py:276-311 with step 0, split 'test')."""
+        t = self.cfg.training
+        # bf16 eval (train.py:283-291): the weights themselves go to bf16;
+        # the port only decodes, so they are cast in place
+        if t.bf16_full_eval and self.container.model_config.dtype == \
+                "bfloat16":
+            self.container.model.to(torch.bfloat16)
+        metrics: Dict[str, float] = {}
+        out_root = Path(t.output_dir)
+        for name, ds in datasets.items():
+            res = self.evaluate_dataset(
+                ds, str(out_root / f"test_{name}" / "step_0"))
+            metrics.update({f"eval_{name}_{k}": v for k, v in res.items()})
+            logger.info("eval %s@0: %s", name,
+                        {k: round(v, 4) for k, v in res.items()})
+        if t.compute_combined_metrics or len(datasets) > 1:
+            for m in t.eval_metrics_list:
+                prefix = m.split("_", 1)[0]
+                errors = sum(v for k, v in metrics.items()
+                             if k.endswith(f"_{prefix}_errors"))
+                length = sum(v for k, v in metrics.items()
+                             if k.endswith(f"_{prefix}_length"))
+                if length:
+                    metrics[f"eval_combined_{prefix}_wer"] = errors / length
+        return metrics
+
+    def run(self) -> Dict[str, float]:
+        os.makedirs(self.cfg.training.output_dir, exist_ok=True)
+        if not self.eval_datasets:
+            raise ValueError(
+                "decode_only=true but no eval cutsets could be loaded from "
+                f"{self.cfg.data.eval_cutsets} -- refusing to produce an "
+                "empty decode run")
+        logger.info("device=%s attention=%s scoring=%s", self.device,
+                    self.container.attention_impl, scoring_backend())
+        return self.do_eval(self.eval_datasets)
+
+
+def main(cfg: Cfg, device: Optional[torch.device] = None) -> Dict[str, float]:
+    # fp32 stays fp32 on the card: cuDNN would otherwise run the fp32 conv
+    # stem in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return DecodeRunner(cfg, device).run()

@@ -1,0 +1,90 @@
+"""Greedy KV-cached decode of one 30 s window batch.
+
+Counterpart of ts_asr_whisper_tpu/decoding/greedy.py at temperature 0: the
+``lax.while_loop`` becomes a Python loop over a preallocated token buffer
+that stops once every row has emitted EOS (one host sync per step). Cross-
+attention K/V are computed once per window; the self-attention cache is
+written in place.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ts_asr_whisper_tpu.decoding.generation_config import GenerationConfig
+
+from ..models.dicow import DiCoW
+from .logits_process import make_logits_processor
+
+
+class GreedyOutput(NamedTuple):
+    sequences: torch.Tensor       # (B, total_len) pad-filled
+    lengths: torch.Tensor         # (B,) valid token count incl. prompt
+    sum_logprobs: torch.Tensor    # (B,) sum of selected-token logprobs
+    no_speech_probs: torch.Tensor  # (B,) P(no-speech token) at the SOT step
+
+
+@torch.no_grad()
+def greedy_decode(
+    model: DiCoW,
+    gen_cfg: GenerationConfig,
+    encoder_hidden: torch.Tensor,   # (B, T_enc, D)
+    init_tokens: torch.Tensor,      # (B, P) prompt incl. decoder_start
+    max_new_tokens: int,
+    force_full_length: bool = False,  # benchmarking: ignore the EOS exit
+) -> GreedyOutput:
+    if gen_cfg.cross_kv_quant:
+        raise NotImplementedError("int8 cross-KV is not ported yet")
+    dec = model.decoder
+    dev = encoder_hidden.device
+    b, prompt_len = init_tokens.shape
+    total_len = prompt_len + max_new_tokens
+    pad = gen_cfg.pad_token_id
+    eos = gen_cfg.eos_token_id
+    no_speech_token = gen_cfg.no_timestamps_token_id - 1
+
+    process = make_logits_processor(gen_cfg, begin_index=prompt_len,
+                                    device=dev)
+    cross_kv = dec.precompute_cross_kv(encoder_hidden)
+    cache = dec.init_kv_cache(b, total_len, dev)
+    # logits weight cast once per window, not once per step
+    w_logits = dec.embed_tokens.weight.to(dec.cfg.compute_dtype).float()
+
+    tokens = torch.full((b, total_len), pad, dtype=torch.long, device=dev)
+    tokens[:, :prompt_len] = init_tokens.to(dev)
+
+    # prefill the prompt
+    hidden = dec.decoder_cached(tokens[:, :prompt_len], 0, cache, cross_kv)
+    logits = dec.lm_logits(hidden[:, -1], w_logits)
+    # no-speech prob from the logits AT the <|startoftranscript|> position
+    # (greedy.py:81-86, HF WhisperNoSpeechDetection)
+    sot_logits = dec.lm_logits(hidden[:, 0], w_logits)
+    no_speech_probs = torch.softmax(sot_logits, dim=-1)[:, no_speech_token]
+
+    cur_len = prompt_len
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    sum_logprobs = torch.zeros(b, dtype=torch.float32, device=dev)
+    while cur_len < total_len and (force_full_length
+                                   or not bool(finished.all())):
+        scores = process(logits, tokens, cur_len)
+        next_tok = torch.where(finished, pad, scores.argmax(dim=-1))
+        logp = torch.log_softmax(scores, dim=-1)
+        tok_logp = logp.gather(1, next_tok[:, None])[:, 0]
+        sum_logprobs += torch.where(finished, 0.0, tok_logp)
+        tokens[:, cur_len] = next_tok
+        finished |= next_tok == eos
+        hidden = dec.decoder_cached(next_tok[:, None], cur_len, cache,
+                                    cross_kv)
+        logits = dec.lm_logits(hidden[:, -1], w_logits)
+        cur_len += 1
+
+    # valid length = prompt + tokens up to and including the first EOS
+    positions = torch.arange(total_len, device=dev)
+    is_eos = (tokens == eos) & (positions[None, :] >= prompt_len)
+    first_eos = torch.where(is_eos.any(dim=1),
+                            is_eos.int().argmax(dim=1),
+                            torch.full((b,), cur_len - 1, device=dev))
+    lengths = torch.clamp(first_eos + 1, max=cur_len)
+    return GreedyOutput(tokens, lengths, sum_logprobs, no_speech_probs)

@@ -1,0 +1,435 @@
+"""Long-form (arbitrary-length) greedy decoding of the port: the host-driven
+seek loop around the per-window encoder and greedy decode.
+
+Counterpart of ts_asr_whisper_tpu/decoding/longform.py:342-683, device side
+in torch: the full-recording features and STNO stay on the device for the
+whole call and each window is sliced there; active rows are compacted into a
+power-of-2 bucket padded with duplicate rows (the first occurrence wins);
+one device->host fetch per window batch; language detection on the first
+window; the no-speech skip. Out of this slice, and refused with
+``NotImplementedError``: beam search, joint CTC, temperature-fallback
+retries, token timestamps, int8 cross-KV.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from decimal import ROUND_HALF_UP, Decimal
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ts_asr_whisper_tpu.decoding.generation_config import GenerationConfig
+
+from ..models.dicow import DiCoW
+from .greedy import greedy_decode
+
+# ---------------------------------------------------------------------------
+# host helpers: a jax-free copy of ts_asr_whisper_tpu/decoding/longform.py:
+# 69-274 (constants, Segment, LongformOutput, retrieve_segment,
+# round_to_nearest_0_02, fix_timestamps_from_segmentation). That module
+# imports jax at the top; fold this copy back once the host helpers move out.
+# ---------------------------------------------------------------------------
+
+TIME_PRECISION = 0.02
+INPUT_STRIDE = 2              # conv2 stride
+NUM_SEGMENT_FRAMES = 3000     # mel frames / 30 s window
+EMPTY_TOKEN_ID = 220          # "Ġ" (single space) in the whisper vocab
+
+
+@dataclass
+class Segment:
+    start: float
+    end: float
+    tokens: np.ndarray
+    # word-level timestamps (seconds, global time) for this segment's
+    # tokens when return_token_timestamps is on (reference
+    # generation.py:473-475,526-527); None otherwise
+    token_timestamps: Optional[np.ndarray] = None
+
+
+@dataclass
+class LongformOutput:
+    sequences: np.ndarray                 # (B, L) padded final token ids
+    segments: List[List[Segment]] = field(default_factory=list)
+    # row-windows actually decoded (incl. seek rollbacks / re-decodes);
+    # benchmarks normalize throughput by this, not nominal audio length
+    windows_decoded: int = 0
+
+
+# ---------------------------------------------------------------------------
+# segment retrieval (host) — port of generation.py:415-534
+# ---------------------------------------------------------------------------
+
+
+def retrieve_segment(
+    seek_sequence: np.ndarray,   # generated tokens for this window (no prompt)
+    timestamp_begin: int,
+    seek_num_frames: int,        # mel frames consumed by this window
+    time_offset: float,          # seconds at window start
+    token_timestamps: Optional[np.ndarray] = None,  # full extracted row
+    prompt_len: int = 0,         # the reference's idx_offset
+) -> tuple:
+    """Split a window's decoded tokens into timestamped segments and compute
+    how many mel frames to advance the seek pointer.
+
+    With ``token_timestamps`` (the per-row DTW extraction incl. prompt
+    zeros), segments carry their token-level times: the consecutive-
+    timestamp branch slices ``[prompt_len + last : prompt_len + current]``
+    and the no-consecutive branch attaches the FULL row — both quirks
+    exactly as the reference (generation.py:473-475,526-527)."""
+    seek_sequence = np.asarray(seek_sequence)
+    ts_tokens = seek_sequence >= timestamp_begin
+    single_timestamp_ending = (
+        len(seek_sequence) >= 2 and ts_tokens[-2:].tolist() == [False, True])
+    consec = np.where(ts_tokens[:-1] & ts_tokens[1:])[0] + 1
+
+    segments: List[Segment] = []
+    if len(consec) > 0:
+        slices = consec.tolist()
+        if single_timestamp_ending:
+            slices.append(len(seek_sequence))
+        else:
+            slices[-1] += 1
+        last_slice = 0
+        for i, current_slice in enumerate(slices):
+            is_last = i == len(slices) - 1
+            sliced = seek_sequence[last_slice:current_slice]
+            start_pos = int(sliced[0]) - timestamp_begin
+            end_idx = -1 if (not is_last or single_timestamp_ending) else -2
+            end_pos = int(sliced[end_idx]) - timestamp_begin
+            tt = None
+            if token_timestamps is not None:
+                tt = token_timestamps[prompt_len + last_slice:
+                                      prompt_len + current_slice] \
+                    + time_offset
+            segments.append(Segment(
+                start=time_offset + start_pos * TIME_PRECISION,
+                end=time_offset + end_pos * TIME_PRECISION,
+                tokens=sliced, token_timestamps=tt))
+            last_slice = current_slice
+        if single_timestamp_ending:
+            segment_offset = seek_num_frames
+        else:
+            last_ts_pos = int(seek_sequence[last_slice - 2]) - timestamp_begin
+            segment_offset = last_ts_pos * INPUT_STRIDE
+    else:
+        timestamps = seek_sequence[ts_tokens]
+        start_pos = 0.0
+        last_pos = seek_num_frames // 2
+        skip = False
+        segment_offset = seek_num_frames
+        if timestamps.size > 1:
+            start_pos = int(timestamps[-2]) - timestamp_begin
+            last_pos = int(timestamps[-1]) - timestamp_begin
+        elif timestamps.size == 1:
+            start_pos = int(timestamps[-1]) - timestamp_begin
+            if start_pos > 200:
+                # segment does not fit the window: roll the seek back
+                # (timestamp may be inaccurate, generation.py:504-507)
+                segment_offset = start_pos * INPUT_STRIDE - 100
+                skip = True
+        elif timestamps.size == 0 and len(seek_sequence) > 1:
+            pass  # no-timestamp decoding: keep output as-is
+        else:
+            skip = True
+        if not skip:
+            tt = None
+            if token_timestamps is not None:
+                # reference quirk: the whole extracted row (incl. prompt
+                # zeros) is attached here, not a slice (generation.py:526)
+                tt = token_timestamps + time_offset
+            segments = [Segment(
+                start=time_offset + start_pos * TIME_PRECISION,
+                end=time_offset + last_pos * TIME_PRECISION,
+                tokens=seek_sequence, token_timestamps=tt)]
+            segment_offset = seek_num_frames
+
+    if segment_offset <= 0:
+        raise ValueError(
+            f"Segment offset {segment_offset} <= 0; this should not happen")
+    return segments, int(segment_offset)
+
+
+# ---------------------------------------------------------------------------
+# timestamp re-blocking (host) — port of generation.py:314-413
+# ---------------------------------------------------------------------------
+
+
+def round_to_nearest_0_02(x: float) -> Decimal:
+    d = Decimal(str(x))
+    step = Decimal("0.02")
+    return (d / step).to_integral_value(rounding=ROUND_HALF_UP) * step
+
+
+def fix_timestamps_from_segmentation(
+    all_segments: List[List[Segment]],
+    timestamp_begin: int,
+    pad_token_id: int,
+    empty_token_id: int = EMPTY_TOKEN_ID,
+) -> np.ndarray:
+    """Re-linearize global-time segments into Whisper's 0-30 s timestamp
+    range with dummy block bridges. Token-level equivalent of the
+    reference's decode->re-encode roundtrip (generation.py:322-413): instead
+    of stringifying, timestamp ids are emitted directly (text is identical)."""
+
+    def ts_id(t: Decimal) -> int:
+        return timestamp_begin + int(
+            (t / Decimal("0.02")).to_integral_value(rounding=ROUND_HALF_UP))
+
+    results = []
+    for segs in all_segments:
+        segs = [s for s in segs
+                if len(s.tokens) > 0 and not (
+                    len(s.tokens) == 1 and int(s.tokens[0]) == timestamp_begin)]
+        result = []  # (start Decimal, [text tokens], end Decimal) in 0-30
+        prev_end = None
+        correction = Decimal(0)
+        for seg in segs:
+            start_time = round_to_nearest_0_02(float(seg.start))
+            end_time = round_to_nearest_0_02(float(seg.end))
+            tokens = [int(t) for t in seg.tokens
+                      if int(t) < timestamp_begin]
+            current_block = (start_time + correction) // 30
+            if prev_end is not None:
+                prev_block = (prev_end - Decimal("0.001")) // 30
+                num_dummies = current_block - prev_block - 1
+                if current_block > prev_block:
+                    result.append((Decimal(30), [empty_token_id], Decimal(30)))
+                for _ in range(int(num_dummies)):
+                    result.append((Decimal(0), [empty_token_id], Decimal(30)))
+            else:
+                for _ in range(int(start_time // 30)):
+                    result.append((Decimal(0), [empty_token_id], Decimal(30)))
+
+            if (start_time + correction) // 30 == (end_time + correction) // 30:
+                result.append(((start_time + correction) % 30, tokens,
+                               (end_time + correction) % 30))
+            elif (end_time + correction) % 30 == 0:
+                result.append(((start_time + correction) % 30, tokens,
+                               Decimal(30)))
+                correction = Decimal(0)
+            else:
+                new_start = (correction + start_time) % 30
+                seg_duration = end_time - start_time
+                new_end = (end_time + correction) % 30
+                if seg_duration == Decimal(30):
+                    if float(new_start) % 30.0 == 0.0:
+                        new_end = Decimal(30)
+                        correction = Decimal(0)
+                    else:
+                        correction = Decimal("-0.02")
+                        new_end += correction
+                else:
+                    correction = Decimal(0)
+                result.append((new_start, tokens, new_end))
+            prev_end = end_time + correction
+
+        ids: List[int] = []
+        for start, toks, end in result:
+            ids.append(ts_id(start))
+            ids.extend(toks)
+            ids.append(ts_id(end))
+        results.append(ids)
+
+    max_len = max((len(r) for r in results), default=1) or 1
+    out = np.full((len(results), max_len), pad_token_id, dtype=np.int64)
+    for i, r in enumerate(results):
+        out[i, : len(r)] = r
+    return out
+
+
+# ---------------------------------------------------------------------------
+# device side
+# ---------------------------------------------------------------------------
+
+
+def slice_windows(features: torch.Tensor, stno: torch.Tensor,
+                  meta: np.ndarray, nsf: int):
+    """Seek-window assembly on the device (longform.py:41-67).
+
+    features: (B, M, T + nsf) zero-padded; stno: (B, 4, (T + nsf) // 2);
+    meta: (4, bucket) [row ids; mel-frame seek offsets; valid mel frames;
+    valid 50 Hz frames]. The mel tail is zeroed and the STNO tail is
+    silence."""
+    dev = features.device
+    mel_pos = torch.arange(nsf, device=dev)
+    stno_pos = torch.arange(nsf // 2, device=dev)
+    windows, stno_windows = [], []
+    for r, s, nm, ns in zip(*(row.tolist() for row in meta)):
+        w = features[r, :, s: s + nsf]
+        windows.append(torch.where(mel_pos < nm, w, 0.0))
+        tail = stno_pos >= ns
+        sv = torch.where(tail, 0.0, stno[r, :, s // 2: s // 2 + nsf // 2])
+        sv[0] = torch.where(tail, 1.0, sv[0])
+        stno_windows.append(sv)
+    return torch.stack(windows), torch.stack(stno_windows)
+
+
+@torch.no_grad()
+def detect_language(model: DiCoW, gen_cfg: GenerationConfig,
+                    encoder_hidden: torch.Tensor) -> np.ndarray:
+    """One decoder step from <sot>; argmax restricted to the language
+    tokens (longform.py:310-334)."""
+    b = encoder_hidden.shape[0]
+    dev = encoder_hidden.device
+    sot = torch.full((b, 1), gen_cfg.decoder_start_token_id,
+                     dtype=torch.long, device=dev)
+    dec = model.decoder
+    logits = dec.lm_logits(dec(sot, encoder_hidden)[:, -1])
+    ids = torch.tensor(gen_cfg.lang_ids, dtype=torch.long, device=dev)
+    return ids[logits[:, ids].argmax(dim=-1)].cpu().numpy()
+
+
+def check_scope(gen_cfg: GenerationConfig) -> None:
+    """Refuse what this slice of the port does not run."""
+    if gen_cfg.num_beams > 1:
+        raise NotImplementedError("beam search is not ported yet")
+    if gen_cfg.ctc_weight > 0:
+        raise NotImplementedError("joint CTC decoding is not ported yet")
+    if gen_cfg.return_token_timestamps:
+        raise NotImplementedError("token timestamps are not ported yet")
+    if gen_cfg.cross_kv_quant:
+        raise NotImplementedError("int8 cross-KV is not ported yet")
+    temps = tuple(gen_cfg.temperature or (0.0,))
+    if len(temps) > 1 and (gen_cfg.logprob_threshold is not None
+                           or gen_cfg.compression_ratio_threshold
+                           is not None):
+        raise NotImplementedError(
+            "temperature-fallback retries are not ported yet")
+
+
+def _next_pow2(n: int, cap: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return min(p, cap)
+
+
+@torch.no_grad()
+def longform_generate(
+    model: DiCoW,
+    gen_cfg: GenerationConfig,
+    input_features: np.ndarray,     # (B, n_mels, T_total) host array
+    stno_mask: np.ndarray,          # (B, 4, T_total // 2)
+    attention_mask: np.ndarray,     # (B, T_total) mel-frame validity
+    forced_decoder_ids: np.ndarray,  # (B, P) decoder prompts
+    return_segments: bool = False,
+    detect_lang: bool = False,      # fill forced_decoder_ids[:, 1]
+) -> LongformOutput:
+    """Batched long-form transcription on the model's device. Returns a
+    LongformOutput whose ``sequences`` carry re-blocked 0-30 s timestamps
+    (ready for the SegLST parser)."""
+    check_scope(gen_cfg)
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    b, _, t_total = input_features.shape
+    nsf = cfg.max_source_positions * INPUT_STRIDE
+    max_frames = np.asarray(attention_mask).sum(-1).astype(np.int64)
+    seek = np.zeros(b, dtype=np.int64)
+    prompt_len = forced_decoder_ids.shape[1]
+    max_new = gen_cfg.max_length - prompt_len
+    all_segments: List[List[Segment]] = [[] for _ in range(b)]
+    ts_begin = gen_cfg.timestamp_begin
+
+    # full recordings on the device for the whole call, zero-padded by one
+    # window so that every seek slice is in bounds
+    feats_dev = F.pad(torch.as_tensor(input_features, dtype=torch.float32),
+                      (0, nsf)).to(dev)
+    stno_dev = F.pad(torch.as_tensor(stno_mask, dtype=torch.float32),
+                     (0, nsf // 2)).to(dev)
+
+    if detect_lang and gen_cfg.lang_ids:
+        meta0 = np.stack([
+            np.arange(b),
+            np.zeros(b, np.int64),
+            np.full(b, min(t_total, nsf)),
+            np.clip(max_frames // 2, 0, nsf // 2),
+        ])
+        first, first_stno = slice_windows(feats_dev, stno_dev, meta0, nsf)
+        langs = detect_language(model, gen_cfg,
+                                model.encoder(first, first_stno))
+        forced_decoder_ids = np.asarray(forced_decoder_ids).copy()
+        forced_decoder_ids[:, 1] = langs
+
+    forced_dev = torch.as_tensor(np.asarray(forced_decoder_ids),
+                                 dtype=torch.long).to(dev)
+
+    windows_decoded = 0
+    while (seek < max_frames).any():
+        active_idx = np.where(seek < max_frames)[0]
+        windows_decoded += len(active_idx)
+        bucket = _next_pow2(len(active_idx), b)
+        rows = np.concatenate(
+            [active_idx,
+             np.full(bucket - len(active_idx), active_idx[0], np.int64)])
+        active = np.zeros(b, dtype=bool)
+        active[active_idx] = True
+
+        seek_num_frames = np.maximum(np.minimum(max_frames - seek, nsf), 0)
+        seek_rows = seek[rows]
+        n_stno = np.clip(max_frames[rows] // 2 - seek_rows // 2, 0, nsf // 2)
+        meta = np.stack([rows, seek_rows, seek_num_frames[rows], n_stno])
+        window, stno_window = slice_windows(feats_dev, stno_dev, meta, nsf)
+        forced_rows = forced_dev[torch.as_tensor(rows, device=dev)]
+
+        enc = model.encoder(window, stno_window)
+        out = greedy_decode(model, gen_cfg, enc, forced_rows, max_new)
+
+        # ONE device->host transfer per window batch: token ids and fp32
+        # scores are exact in float64
+        seq_len = out.sequences.shape[1]
+        fetched = torch.cat([
+            out.sequences.double(), out.lengths[:, None].double(),
+            out.sum_logprobs[:, None].double(),
+            out.no_speech_probs[:, None].double()], dim=1).cpu().numpy()
+        sequences = np.zeros((b, seq_len), dtype=np.int64)
+        lengths = np.zeros(b, dtype=np.int64)
+        sum_logprobs = np.zeros(b, dtype=np.float64)
+        no_speech = np.zeros(b, dtype=np.float64)
+        seen_rows = set()
+        for j, i in enumerate(rows):
+            if i in seen_rows:
+                continue  # padded duplicates: the first occurrence wins
+            seen_rows.add(i)
+            sequences[i] = fetched[j, :seq_len].astype(np.int64)
+            lengths[i] = int(fetched[j, seq_len])
+            sum_logprobs[i] = fetched[j, seq_len + 1]
+            no_speech[i] = fetched[j, seq_len + 2]
+
+        # no-speech skip (HF _need_fallback): silence iff the SOT-step
+        # no-speech prob exceeds its threshold AND the decode is
+        # low-confidence; both thresholds must be set
+        avg_lp = sum_logprobs / np.maximum(lengths - prompt_len, 1)
+        if (gen_cfg.no_speech_threshold is None
+                or gen_cfg.logprob_threshold is None):
+            skip_silence = np.zeros(b, dtype=bool)
+        else:
+            skip_silence = ((no_speech > gen_cfg.no_speech_threshold)
+                            & (avg_lp < gen_cfg.logprob_threshold))
+
+        for i in range(b):
+            if not active[i]:
+                continue
+            if skip_silence[i]:
+                seek[i] += int(seek_num_frames[i])
+                continue
+            seq = sequences[i, prompt_len: lengths[i]]
+            # strip trailing eos/pad
+            while len(seq) and seq[-1] in (gen_cfg.eos_token_id,
+                                           gen_cfg.pad_token_id):
+                seq = seq[:-1]
+            time_offset = float(seek[i]) * TIME_PRECISION / INPUT_STRIDE
+            segments, offset = retrieve_segment(
+                seq, ts_begin, int(seek_num_frames[i]), time_offset,
+                prompt_len=prompt_len)
+            all_segments[i].extend(segments)
+            seek[i] += offset
+
+    sequences = fix_timestamps_from_segmentation(
+        all_segments, ts_begin, gen_cfg.pad_token_id)
+    return LongformOutput(sequences=sequences,
+                          segments=all_segments if return_segments else [],
+                          windows_decoded=windows_decoded)

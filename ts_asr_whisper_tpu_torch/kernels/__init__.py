@@ -1,0 +1,86 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), built with ``nvcc`` at first
+use and bound through ``ctypes``.
+
+Each source under ``csrc/`` exposes a plain C function (no PyTorch headers,
+so ``nvcc`` builds it in seconds). The shared library lands in
+``build/kernels/<name>-<hash of the source>/`` at the repository root, so an
+edited source is rebuilt and a checkout builds everything it needs from its
+own files. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": build time (0.0 when reused), "log": nvcc output}
+build_info: Dict[str, dict] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built from source at first use")
+    return found
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` into a shared library unless a build of the
+    same source already exists; return the library's path."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = BUILD_ROOT / f"{name}-{digest}"
+    lib = out_dir / f"lib{name}.so"
+    if lib.exists():
+        build_info[name] = {"seconds": 0.0, "log": ""}
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".lib{name}.{os.getpid()}.so"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    build_info[name] = {"seconds": time.perf_counter() - t0,
+                        "log": proc.stdout + proc.stderr}
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+        return lib
+
+
+def flash_attn_fwd_lib() -> ctypes.CDLL:
+    lib = load("flash_attn_fwd")
+    fn = lib.flash_attn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,226 @@
+"""DiCoW model of the port: the STNO-conditioned Whisper encoder, the CTC
+head and the full encoder-decoder with HF parameter names.
+
+Counterpart of ts_asr_whisper_tpu/models/dicow.py:104-212 and 246-293
+(``dicow_encoder_forward`` without the SE-DiCoW SCB streams,
+``encoder_ctc_logits``, ``init_dicow``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import DiCoWConfig
+from .fddt import FDDT
+from .whisper import (
+    Attention,
+    EncoderLayer,
+    LayerNorm,
+    WhisperDecoder,
+    gelu,
+    linear,
+    sinusoidal_positions,
+)
+
+
+class DiCoWEncoder(nn.Module):
+    """Whisper encoder (conv stem, learned positions, layer stack, final
+    norm) with initial and per-layer FDDT and the optional CTC head modules
+    (built so that DiCoW state dicts load strictly). ``flash`` routes the
+    self-attention through ``ops/attention.py::flash_mha_fwd``."""
+
+    def __init__(self, cfg: DiCoWConfig, flash: bool = False):
+        if cfg.use_enrollments and cfg.scb_layers:
+            raise NotImplementedError(
+                "SE-DiCoW SCB enrollment streams are not ported yet")
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        self.flash = flash
+        self.conv1 = nn.Conv1d(cfg.num_mel_bins, d, 3, padding=1)
+        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
+        self.embed_positions = nn.Embedding(cfg.max_source_positions, d)
+        self.layers = nn.ModuleList(
+            EncoderLayer(d, cfg.encoder_attention_heads, cfg.encoder_ffn_dim)
+            for _ in range(cfg.encoder_layers))
+        self.layer_norm = LayerNorm(d)
+        fddt_kw = dict(is_diagonal=cfg.fddt_is_diagonal,
+                       bias_only=cfg.fddt_bias_only,
+                       use_silence=cfg.fddt_use_silence,
+                       use_target=cfg.fddt_use_target,
+                       use_overlap=cfg.fddt_use_overlap,
+                       use_non_target=cfg.fddt_use_non_target)
+        if cfg.use_fddt and cfg.num_fddts:
+            self.fddts = nn.ModuleList(FDDT(d, **fddt_kw)
+                                       for _ in range(cfg.num_fddts))
+        if cfg.use_fddt and cfg.use_pre_pos_fddt:
+            self.initial_fddt = FDDT(d, **fddt_kw)
+        if cfg.ctc_weight > 0.0:
+            if cfg.additional_layer:
+                self.additional_layer = EncoderLayer(
+                    d, cfg.encoder_attention_heads, cfg.encoder_ffn_dim)
+            if cfg.additional_self_attention_layer:
+                self.additional_self_attention_layer = Attention(
+                    d, cfg.encoder_attention_heads)
+            if cfg.pre_ctc_sub_sample:
+                self.subsample_conv1 = nn.Conv1d(d, d, 3, stride=2, padding=1,
+                                                 bias=False)
+                self.subsample_conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1,
+                                                 bias=False)
+            self.lm_head = nn.Linear(d, cfg.ctc_vocab_size, bias=False)
+
+    def stem(self, input_features: torch.Tensor) -> torch.Tensor:
+        """(B, n_mels, 3000) -> (B, 1500, D): conv1 + gelu, conv2 (stride 2)
+        + gelu (whisper.py:196-222)."""
+        dt = self.cfg.compute_dtype
+        x = input_features.to(dt)
+        x = gelu(F.conv1d(x, self.conv1.weight.to(dt), self.conv1.bias.to(dt),
+                          padding=1))
+        x = gelu(F.conv1d(x, self.conv2.weight.to(dt), self.conv2.bias.to(dt),
+                          stride=2, padding=1))
+        return x.transpose(1, 2)
+
+    def forward(self, input_features: torch.Tensor,
+                stno_mask: torch.Tensor) -> torch.Tensor:
+        """(B, n_mels, 3000) features, (B, 4, 1500) STNO -> last hidden
+        state (B, 1500, D) (dicow.py:104-193 without SCB streams)."""
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        x = self.stem(input_features)
+        if cfg.use_fddt and cfg.use_pre_pos_fddt:
+            x = self.initial_fddt(x, stno_mask)
+        x = x + self.embed_positions.weight.to(x.dtype)[: x.shape[-2]]
+        nf = cfg.num_fddts
+        for i, layer in enumerate(self.layers):
+            if cfg.use_fddt and i < nf:
+                x = self.fddts[i](x, stno_mask)
+            x = layer(x, dt, flash=self.flash)
+        return self.layer_norm(x)
+
+    def ctc_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """CTC head over the encoder hidden states (dicow.py:196-212): extra
+        layer OR bare self-attention (no residual), then optional 2x
+        stride-2 conv subsampling (no activation), then lm_head -> fp32."""
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        h = hidden.to(dt)
+        if cfg.additional_layer and cfg.ctc_weight > 0.0:
+            h = self.additional_layer(h, dt, flash=self.flash)
+        elif cfg.additional_self_attention_layer and cfg.ctc_weight > 0.0:
+            h = self.additional_self_attention_layer(h, h, dt,
+                                                     flash=self.flash)
+        if cfg.pre_ctc_sub_sample and cfg.ctc_weight > 0.0:
+            for conv in (self.subsample_conv1, self.subsample_conv2):
+                h = F.conv1d(
+                    h.transpose(1, 2), conv.weight.to(dt), stride=2,
+                    padding=1).transpose(1, 2)
+        return linear(self.lm_head, h, dt).float()
+
+
+class _Core(nn.Module):
+    def __init__(self, encoder: DiCoWEncoder, decoder: WhisperDecoder):
+        super().__init__()
+        self.encoder = encoder
+        self.decoder = decoder
+
+
+class DiCoW(nn.Module):
+    """Encoder-decoder with the HF parameter layout (``model.encoder.*``,
+    ``model.decoder.*``, ``proj_out`` tied to ``embed_tokens``)."""
+
+    def __init__(self, cfg: DiCoWConfig, flash: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.model = _Core(DiCoWEncoder(cfg, flash), WhisperDecoder(cfg))
+        self.proj_out = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
+        self.proj_out.weight = self.model.decoder.embed_tokens.weight
+
+    @property
+    def encoder(self) -> DiCoWEncoder:
+        return self.model.encoder
+
+    @property
+    def decoder(self) -> WhisperDecoder:
+        return self.model.decoder
+
+
+def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator):
+    t.uniform_(-bound, bound, generator=gen)
+
+
+def _init_linear_(m: nn.Linear, gen: torch.Generator) -> None:
+    # torch nn.Linear's kaiming-uniform fan-in bound (whisper.py:752-760)
+    bound = 1.0 / math.sqrt(m.weight.shape[1])
+    _uniform_(m.weight, bound, gen)
+    if m.bias is not None:
+        _uniform_(m.bias, bound, gen)
+
+
+def _init_layer_(layer: nn.Module, gen: torch.Generator) -> None:
+    for m in layer.modules():
+        if isinstance(m, nn.Linear):
+            _init_linear_(m, gen)
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+@torch.no_grad()
+def init_dicow_(model: DiCoW, generator: torch.Generator) -> DiCoW:
+    """Random init with the distributions of the JAX package's init_dicow
+    (dicow.py:246-293, whisper.py:748-848, fddt.py:28-76). The numbers
+    differ from jax.random's; the tests bridge the JAX weights instead."""
+    cfg = model.cfg
+    enc, dec = model.encoder, model.decoder
+    d = cfg.d_model
+    _uniform_(enc.conv1.weight, 1.0 / math.sqrt(cfg.num_mel_bins * 3),
+              generator)
+    _uniform_(enc.conv1.bias, 1.0 / math.sqrt(cfg.num_mel_bins * 3),
+              generator)
+    _uniform_(enc.conv2.weight, 1.0 / math.sqrt(d * 3), generator)
+    _uniform_(enc.conv2.bias, 1.0 / math.sqrt(d * 3), generator)
+    enc.embed_positions.weight.copy_(torch.from_numpy(
+        sinusoidal_positions(cfg.max_source_positions, d)))
+    for layer in list(enc.layers) + list(dec.layers):
+        _init_layer_(layer, generator)
+    enc.layer_norm.weight.fill_(1.0)
+    enc.layer_norm.bias.zero_()
+    dec.embed_tokens.weight.normal_(0.0, 0.02, generator=generator)
+    dec.embed_positions.weight.normal_(0.0, 0.02, generator=generator)
+    dec.layer_norm.weight.fill_(1.0)
+    dec.layer_norm.bias.zero_()
+    for f in getattr(enc, "fddts", ()):
+        # per-layer FDDTs use non_target_rate=1.0 (dicow.py:259-262)
+        f.init_(generator, 1.0, cfg.fddt_init)
+    if hasattr(enc, "initial_fddt"):
+        enc.initial_fddt.init_(generator, cfg.non_target_fddt_value,
+                               cfg.fddt_init)
+    for name in ("additional_layer", "additional_self_attention_layer"):
+        if hasattr(enc, name):
+            _init_layer_(getattr(enc, name), generator)
+    for name in ("subsample_conv1", "subsample_conv2"):
+        if hasattr(enc, name):
+            _uniform_(getattr(enc, name).weight, 1.0 / math.sqrt(d * 3),
+                      generator)
+    if hasattr(enc, "lm_head"):
+        _init_linear_(enc.lm_head, generator)
+    return model
+
+
+def build_dicow(cfg: DiCoWConfig, device: torch.device, seed: int = 0,
+                flash: bool = False,
+                dtype: Optional[torch.dtype] = None) -> DiCoW:
+    """Construct on ``device`` and random-initialize from ``seed``."""
+    with torch.device(device):
+        model = DiCoW(cfg, flash)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    init_dicow_(model, gen)
+    if dtype is not None:
+        model.to(dtype)
+    return model.eval()

@@ -1,0 +1,228 @@
+"""Whisper encoder/decoder core of the port, as ``nn.Module``s.
+
+Counterpart of ts_asr_whisper_tpu/models/whisper.py:40-300, 380-550. Module
+and parameter names follow HF ``WhisperForConditionalGeneration``, so a
+DiCoW state dict loads strictly. Per-layer weights live in
+``nn.ModuleList``s (the JAX package stacks them on a leading axis for
+``lax.scan``).
+
+Numerics as the JAX package: parameters may be stored in one dtype and cast
+to the compute dtype at use; layer norms, attention softmax and the logits
+run in fp32; exact (erf) GELU; q scaled by head_dim**-0.5.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import plain_sdpa, sdpa
+from .config import DiCoWConfig
+
+KVCache = Dict[str, torch.Tensor]
+CrossKV = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x @ W^T + b with weights and input cast to the compute dtype."""
+    b = m.bias.to(dtype) if m.bias is not None else None
+    return F.linear(x.to(dtype), m.weight.to(dtype), b)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+class LayerNorm(nn.Module):
+    """Layer norm computed in fp32 (eps 1e-5), cast back to the input dtype."""
+
+    def __init__(self, d: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    # (..., T, D) -> (..., H, T, hd)
+    *lead, t, d = x.shape
+    return x.reshape(*lead, t, num_heads, d // num_heads).transpose(-3, -2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    # (..., H, T, hd) -> (..., T, D)
+    x = x.transpose(-3, -2)
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+class Attention(nn.Module):
+    """HF WhisperAttention parameters: k_proj has no bias."""
+
+    def __init__(self, d: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d, bias=False)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+
+    def query(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        head_dim = x.shape[-1] // self.num_heads
+        return split_heads(linear(self.q_proj, x, dtype) * head_dim ** -0.5,
+                           self.num_heads)
+
+    def keys_values(self, x: torch.Tensor, dtype):
+        return (split_heads(linear(self.k_proj, x, dtype), self.num_heads),
+                split_heads(linear(self.v_proj, x, dtype), self.num_heads))
+
+    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor, dtype,
+                mask: Optional[torch.Tensor] = None,
+                flash: bool = False) -> torch.Tensor:
+        q = self.query(x_q, dtype)
+        k, v = self.keys_values(x_kv, dtype)
+        out = sdpa(q, k, v, mask, flash=flash)
+        return linear(self.out_proj, merge_heads(out), dtype)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d: int, num_heads: int, ffn: int):
+        super().__init__()
+        self.self_attn = Attention(d, num_heads)
+        self.self_attn_layer_norm = LayerNorm(d)
+        self.fc1 = nn.Linear(d, ffn)
+        self.fc2 = nn.Linear(ffn, d)
+        self.final_layer_norm = LayerNorm(d)
+
+    def mlp(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        return linear(self.fc2, gelu(linear(self.fc1, x, dtype)), dtype)
+
+    def forward(self, x: torch.Tensor, dtype, flash: bool = False):
+        h = self.self_attn_layer_norm(x)
+        x = x + self.self_attn(h, h, dtype, flash=flash)
+        return x + self.mlp(self.final_layer_norm(x), dtype)
+
+
+class DecoderLayer(EncoderLayer):
+    def __init__(self, d: int, num_heads: int, ffn: int):
+        super().__init__(d, num_heads, ffn)
+        self.encoder_attn = Attention(d, num_heads)
+        self.encoder_attn_layer_norm = LayerNorm(d)
+
+    def forward(self, x: torch.Tensor, enc: torch.Tensor, dtype,
+                self_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.self_attn_layer_norm(x)
+        x = x + self.self_attn(h, h, dtype, mask=self_mask)
+        h = self.encoder_attn_layer_norm(x)
+        x = x + self.encoder_attn(h, enc, dtype)
+        return x + self.mlp(self.final_layer_norm(x), dtype)
+
+
+def sinusoidal_positions(length: int, d_model: int) -> np.ndarray:
+    """Whisper encoder sinusoids (whisper.py:807-812)."""
+    log_timescale = math.log(10000) / (d_model // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(d_model // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)],
+                          axis=1).astype(np.float32)
+
+
+class WhisperDecoder(nn.Module):
+    def __init__(self, cfg: DiCoWConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, d)
+        self.embed_positions = nn.Embedding(cfg.max_target_positions, d)
+        self.layers = nn.ModuleList(
+            DecoderLayer(d, cfg.decoder_attention_heads, cfg.decoder_ffn_dim)
+            for _ in range(cfg.decoder_layers))
+        self.layer_norm = LayerNorm(d)
+
+    def embed(self, input_ids: torch.Tensor, pos0: int) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        t = input_ids.shape[-1]
+        pos = self.embed_positions.weight[pos0: pos0 + t]
+        return self.embed_tokens.weight[input_ids].to(dt) + pos.to(dt)
+
+    def forward(self, input_ids: torch.Tensor, encoder_hidden: torch.Tensor,
+                position_offset: int = 0) -> torch.Tensor:
+        """Teacher-forced decoder (whisper.py:251-267): (B, T) tokens ->
+        (B, T, D) final hidden."""
+        dt = self.cfg.compute_dtype
+        x = self.embed(input_ids, position_offset)
+        t = input_ids.shape[-1]
+        mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+        enc = encoder_hidden.to(dt)
+        for layer in self.layers:
+            x = layer(x, enc, dt, self_mask=mask)
+        return self.layer_norm(x)
+
+    def lm_logits(self, hidden: torch.Tensor,
+                  weight_f32: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """proj_out tied to embed_tokens, fp32 accumulation of the compute-
+        dtype operands (whisper.py:270-274). ``weight_f32`` is
+        ``embed_tokens`` cast to the hidden dtype and then to fp32, for
+        callers that take logits every step."""
+        if weight_f32 is None:
+            weight_f32 = self.embed_tokens.weight.to(hidden.dtype).float()
+        return F.linear(hidden.float(), weight_f32)
+
+    def precompute_cross_kv(self, encoder_hidden: torch.Tensor) -> CrossKV:
+        """Cross-attention K/V of every layer, (B, H, T_enc, hd) each."""
+        dt = self.cfg.compute_dtype
+        enc = encoder_hidden.to(dt)
+        return [layer.encoder_attn.keys_values(enc, dt)
+                for layer in self.layers]
+
+    def init_kv_cache(self, batch: int, max_len: int,
+                      device: torch.device) -> KVCache:
+        """Self-attention cache in the 'bhtd' layout: (L, B, H, T, hd)."""
+        c = self.cfg
+        shape = (c.decoder_layers, batch, c.decoder_attention_heads, max_len,
+                 c.d_model // c.decoder_attention_heads)
+        return {"k": torch.zeros(shape, dtype=c.compute_dtype, device=device),
+                "v": torch.zeros(shape, dtype=c.compute_dtype, device=device)}
+
+    def decoder_cached(self, input_ids: torch.Tensor, pos: int,
+                       kv_cache: KVCache, cross_kv: CrossKV) -> torch.Tensor:
+        """Run T_new tokens at positions pos.. through the decoder, writing
+        their K/V into ``kv_cache`` in place (whisper.py:396-549 without
+        beam_src / alignment_slots). Returns the final hidden (B, T_new, D).
+
+        Query i sees cache keys j <= pos + i (whisper.py:443-446); the keys
+        past pos + T_new are left out instead of masked, which changes no
+        value: a masked key's probability is exactly 0."""
+        dt = self.cfg.compute_dtype
+        t_new = input_ids.shape[-1]
+        end = pos + t_new
+        x = self.embed(input_ids, pos)
+        key_pos = torch.arange(end, device=x.device)
+        q_pos = pos + torch.arange(t_new, device=x.device)
+        self_mask = key_pos[None, :] <= q_pos[:, None]      # (T_new, end)
+        for li, layer in enumerate(self.layers):
+            h = layer.self_attn_layer_norm(x)
+            q = layer.self_attn.query(h, dt)
+            k_new, v_new = layer.self_attn.keys_values(h, dt)
+            cache_k, cache_v = kv_cache["k"][li], kv_cache["v"][li]
+            cache_k[:, :, pos:end] = k_new
+            cache_v[:, :, pos:end] = v_new
+            attn = plain_sdpa(q, cache_k[:, :, :end], cache_v[:, :, :end],
+                              self_mask)
+            x = x + linear(layer.self_attn.out_proj, merge_heads(attn), dt)
+            h = layer.encoder_attn_layer_norm(x)
+            q = layer.encoder_attn.query(h, dt)
+            ck, cv = cross_kv[li]
+            attn = plain_sdpa(q, ck, cv)
+            x = x + linear(layer.encoder_attn.out_proj, merge_heads(attn), dt)
+            x = x + layer.mlp(layer.final_layer_norm(x), dt)
+        return self.layer_norm(x)
