@@ -6,21 +6,35 @@
 Phases, each of which fails the run (non-zero exit) when it breaks:
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
      no CUDA device -> exit 2, there is no CPU path;
-  2. build the CUDA flash-attention kernel from kernels/csrc with nvcc;
-  3. kernel vs its plain PyTorch version at the encoder's shapes, bf16 and
-     fp32, with errors and median times (CUDA events, after warm-up);
-  4. the large-v3-turbo DiCoW encoder at fp32 on 2 windows, through the
+  2. build the three CUDA kernels from kernels/csrc with nvcc, one nvcc per
+     source, all started together;
+  3. flash attention vs its plain PyTorch version at the encoder's shapes,
+     bf16 and fp32, with errors and median times (CUDA events, warmed up);
+  4. beam ancestry attention vs its plain version at beam 5 x batch 2,
+     20 heads, cache lengths 128 and 448, bf16 and fp32;
+  5. the candidate CTC-psi gather + dot vs its plain version at the turbo
+     vocab (51866), 375 CTC frames, 10 hypotheses x 512 candidate slots,
+     fp32 and bf16 posteriors from blank-dominant logits (so every frame
+     weighs in each sum), and the psi it feeds against the CPU path;
+     phases 4 and 5 time each call with CUDA events and, apart, the device
+     time of its kernels with torch.profiler;
+  6. the large-v3-turbo DiCoW encoder at fp32 on 2 windows, through the
      kernel and through plain attention;
-  5. long-form greedy decode of a synthetic 16-row corpus (8 two-speaker
+  7. long-form greedy decode of a synthetic 16-row corpus (8 two-speaker
      recordings of 60 s) at large-v3-turbo width with random weights,
      through the decode entry point with the dicow_v3_greedy settings;
-     every encoder layer must have run the kernel.
+     every encoder layer must have run the flash kernel;
+  8. long-form beam-5 joint-CTC decode (dicow_v3_beam_joint) of 8 rows
+     (4 two-speaker recordings of 60 s, 4 calls of batch 2) at the same
+     width: every beam step must have run the ancestry kernel in each
+     decoder layer and the psi kernel once.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing here imports jax.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import shutil
@@ -40,6 +54,7 @@ TURBO = {"vocab_size": 51866, "num_mel_bins": 128, "d_model": 1280,
          "encoder_attention_heads": 20, "decoder_attention_heads": 20,
          "encoder_ffn_dim": 5120, "decoder_ffn_dim": 5120,
          "max_source_positions": 1500, "max_target_positions": 448}
+KERNELS = ("flash_attn_fwd", "ancestry_attn", "psi_gather_dot")
 ENC_SHAPE = (16, 20, 1500, 64)   # turbo encoder attention at batch 16
 RAGGED_T = (257, 1000, 1499)
 TOLS = {torch.float32: (2e-5, 1e-5),   # as tests/test_attention.py
@@ -48,6 +63,19 @@ TOLS = {torch.float32: (2e-5, 1e-5),   # as tests/test_attention.py
 # difference is summation order (~1e-6 per attention), carried through 32
 # residual layers and the FDDTs of a random-weight model
 ENC_ATOL = 1e-3
+# beam slice: dicow_v3_beam_joint decodes batch 2 with 5 beams
+BEAMS, AUDIO_ROWS = 5, 2
+ANC_T = (128, 448)               # generation_max_length 128; the model's max
+ANC_TOLS = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
+ANC_MAIN = (448, 224, torch.bfloat16)  # mid-way through a full-length decode
+# CTC psi: the posterior has 375 frames (two stride-2 convs after the
+# encoder); fp32 sums in another order
+CTC_T, PSI_TOL = 375, 2e-5
+# blank logit offset of the synthetic CTC posterior: blank takes ~99.3% of
+# each frame, as a trained CTC head gives, so the psi weights w stay within
+# 1e-3 of their maximum over (nearly) all 375 frames and every frame of a
+# candidate row counts in its sum
+BLANK_LOGIT, W_SPAN = 20.0, 300
 
 
 def log(msg: str) -> None:
@@ -70,6 +98,32 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps: int = 20):
+    """Device time per call of ``fn``: the sum of its kernels' times in a
+    torch.profiler trace of ``reps`` calls. Unlike ``median_ms`` it leaves
+    out the host's time to reach the launch, which bounds small kernels.
+    A trace that caught no kernel is taken again; None if none ever does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    return None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def phase_card() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -89,13 +143,16 @@ def phase_build() -> None:
     from ts_asr_whisper_tpu_torch import kernels
 
     t0 = time.perf_counter()
-    kernels.flash_attn_fwd_lib()
-    info = kernels.build_info["flash_attn_fwd"]
-    log(f"[build] flash_attn_fwd.cu -> sm_90a in {info['seconds']:.1f} s "
-        f"(load {time.perf_counter() - t0:.1f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    kernels.build_all(KERNELS)
+    log(f"[build] {len(KERNELS)} sources in parallel: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        getattr(kernels, f"{name}_lib")()
+        info = kernels.build_info[name]
+        log(f"[build] {name}.cu -> sm_90a in {info['seconds']:.1f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
 
 
 def phase_kernel(dev) -> dict:
@@ -127,6 +184,156 @@ def phase_kernel(dev) -> dict:
         if shape == ENC_SHAPE and dt == torch.bfloat16:
             main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_ancestry(dev) -> dict:
+    """Ancestry beam attention vs its plain version at the beam step's
+    shapes: q/k_new/v_new (10, 20, 1, 64), one layer's cache (10, 20, T, 64),
+    random group-local ancestors; L2 is warm (one layer's K/V <= 11.5 MB)."""
+    from ts_asr_whisper_tpu_torch.ops import beam_attention as BA
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bb, h = AUDIO_ROWS * BEAMS, TURBO["decoder_attention_heads"]
+    main = {}
+    for t in ANC_T:
+        for pos in (1, t // 2, t - 1):
+            for dt in (torch.bfloat16, torch.float32):
+                q = torch.randn(bb, h, 1, 64, device=dev, generator=gen) / 8
+                k_new, v_new = (torch.randn(bb, h, 1, 64, device=dev,
+                                            generator=gen) for _ in range(2))
+                ck, cv = (torch.randn(bb, h, t, 64, device=dev,
+                                      generator=gen) for _ in range(2))
+                hist = torch.randint(0, BEAMS, (bb, t), device=dev,
+                                     generator=gen, dtype=torch.int32)
+                args = [x.to(dt) for x in (q, k_new, v_new, ck, cv)] + [hist]
+                out = BA.ancestry_attention(*args, pos, BEAMS)
+                ref = BA.ancestry_attention_reference(*args, pos, BEAMS)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                atol, rtol = ANC_TOLS[dt]
+                ok = out.dtype == dt and torch.allclose(
+                    out.float(), ref.float(), atol=atol, rtol=rtol)
+                ms = median_ms(lambda: BA.ancestry_attention(*args, pos,
+                                                             BEAMS), reps=20)
+                plain_ms = median_ms(
+                    lambda: BA.ancestry_attention_reference(*args, pos, BEAMS),
+                    reps=20)
+                dev_ms = device_ms(
+                    lambda: BA.ancestry_attention(*args, pos, BEAMS))
+                plain_dev_ms = device_ms(
+                    lambda: BA.ancestry_attention_reference(*args, pos, BEAMS))
+                log(f"[ancestry] Bb {bb} H {h} T {t} pos {pos} "
+                    f"{str(dt)[6:]}: max_abs_err {err:.3e} (atol {atol}, "
+                    f"rtol {rtol}) per call: kernel {ms:.4f} ms plain "
+                    f"{plain_ms:.4f} ms; device: kernel {fmt_ms(dev_ms)} "
+                    f"plain {fmt_ms(plain_dev_ms)}")
+                if not ok:
+                    raise AssertionError(
+                        f"ancestry kernel disagrees at T {t} pos {pos} {dt}")
+                if (t, pos, dt) == ANC_MAIN:
+                    main = {"max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "device_ms": dev_ms,
+                            "plain_device_ms": plain_dev_ms}
+    return main
+
+
+def phase_psi(dev) -> dict:
+    """The psi gather + dot vs its plain version at the beam step's shapes:
+    posterior (2, 51867, 375) from blank-dominant CTC logits, 10 hypotheses
+    x 512 candidate slots from the rescorer's own candidate rule on
+    tie-heavy scores, weights w that span the frames. The sums are of
+    positive terms, so they are held at a relative 2e-5 (a fixed atol would
+    pass anything at sums of ~1e-6). Then the psi values it feeds
+    (ctc_psi_candidates) on the card vs the CPU's plain path: same
+    sparsity, live values at 2e-5. L2 is warm for the timings."""
+    from ts_asr_whisper_tpu_torch.decoding.ctc_rescorer import candidate_mask
+    from ts_asr_whisper_tpu_torch.models.config import DiCoWConfig
+    from ts_asr_whisper_tpu_torch.ops import psi_gather as PG
+    from ts_asr_whisper_tpu_torch.ops.ctc_prefix import (LOG_ZERO,
+                                                         initial_ctc_state,
+                                                         psi_weights)
+
+    cfg = DiCoWConfig(**TURBO)
+    v_dec, blank, eos = cfg.vocab_size, cfg.vocab_size, cfg.eos_token_id
+    ts_begin = cfg.timestamp_begin
+    # the rescorer's candidate count and slots: 500 -> 512 at turbo
+    k = min(500, ts_begin - 1)
+    k_pad = -(-(k + 1) // 128) * 128
+    bb = AUDIO_ROWS * BEAMS
+    gen = torch.Generator(device=dev).manual_seed(5)
+    logits = torch.randn(AUDIO_ROWS, CTC_T, v_dec + 1, device=dev,
+                         generator=gen) * 2
+    logits[..., blank] += BLANK_LOGIT
+    logp = torch.log_softmax(logits, dim=-1)
+    del logits
+    audio_idx = torch.arange(bb, device=dev) // BEAMS
+    r0, _ = initial_ctc_state(logp, blank)
+    r = r0[audio_idx]
+    r = r + 0.1 * torch.randn(r.shape, device=dev, generator=gen)
+    decoded_len = torch.randint(0, 4, (bb,), device=dev, generator=gen)
+    decoded_len[0] = 0
+    last = torch.randint(10, ts_begin, (bb,), device=dev, generator=gen)
+    scores = torch.log_softmax(
+        torch.randn(bb, v_dec, device=dev, generator=gen) * 3, dim=-1)
+    scores[-1, 100:700] = scores[-1].max()    # 600 exact ties for 500 slots
+    mask = candidate_mask(scores, k, eos, ts_begin)
+    mask[1, last[1]] = True                   # the last-label correction
+    popcount = int(mask.sum(dim=1).max())
+    if popcount > k_pad:
+        raise AssertionError(f"{popcount} candidates > {k_pad} slots")
+    logp_vt = logp.transpose(1, 2).contiguous()
+    x_last = logp_vt[audio_idx, last]
+    ids = PG.extract_topk_ids(mask, k_pad)
+    w, _, _ = psi_weights(r, decoded_len)
+    span = int((w > 1e-3 * w.amax(dim=1, keepdim=True)).sum(dim=1).min())
+    if span < W_SPAN:
+        raise AssertionError(f"psi weights span {span} frames < {W_SPAN}: "
+                             "the sums would not test every frame")
+    cpu = [x.cpu() for x in (mask, audio_idx, x_last, r, decoded_len, last)]
+    main = {}
+    for dt in (torch.float32, torch.bfloat16):
+        p_vt = PG.padded_posterior(torch.exp(logp_vt), dt)
+        vals = PG.psi_gather_dot(p_vt, audio_idx, ids, w)
+        ref = PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w)
+        torch.cuda.synchronize()
+        err = (vals - ref).abs().max().item()
+        rel = ((vals - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
+        ok = torch.allclose(vals, ref, atol=0.0, rtol=PSI_TOL)
+        psi = PG.ctc_psi_candidates(p_vt, mask, audio_idx, x_last, r,
+                                    decoded_len, last, eos, k_pad).cpu()
+        psi_ref = PG.ctc_psi_candidates(p_vt.cpu(), *cpu, eos, k_pad)
+        live = psi_ref > LOG_ZERO / 2
+        same_live = torch.equal(psi > LOG_ZERO / 2, live)
+        psi_err = (psi[live] - psi_ref[live]).abs().max().item()
+        ok = ok and same_live and torch.allclose(
+            psi[live], psi_ref[live], atol=PSI_TOL, rtol=PSI_TOL)
+        ms = median_ms(lambda: PG.psi_gather_dot(p_vt, audio_idx, ids, w),
+                       reps=20)
+        plain_ms = median_ms(
+            lambda: PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w),
+            reps=20)
+        dev_ms = device_ms(lambda: PG.psi_gather_dot(p_vt, audio_idx, ids, w))
+        plain_dev_ms = device_ms(
+            lambda: PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w))
+        log(f"[psi] P (2, {v_dec + 1}, {CTC_T}) {str(dt)[6:]}, ids "
+            f"{tuple(ids.shape)}, popcount <= {popcount}: sums max_abs_err "
+            f"{err:.3e} (sums {ref.min().item():.3e} to "
+            f"{ref.max().item():.3e}, max rel err {rel:.3e}, rtol {PSI_TOL}; "
+            f"w spans >= {span} of {CTC_T} frames), live psi max_abs_err {psi_err:.3e} vs the CPU path "
+            f"({int(live.sum())} live, sparsity "
+            f"{'equal' if same_live else 'DIFFERS'}; atol/rtol {PSI_TOL}) "
+            f"per call: kernel {ms:.4f} ms plain {plain_ms:.4f} ms; device: "
+            f"kernel {fmt_ms(dev_ms)} plain {fmt_ms(plain_dev_ms)}")
+        if not ok:
+            raise AssertionError(f"psi kernel disagrees ({dt})")
+        if dt == torch.float32:
+            main = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                    "plain_ms": plain_ms, "device_ms": dev_ms,
+                    "plain_device_ms": plain_dev_ms}
+        del p_vt
+    del logp, logp_vt
     torch.cuda.empty_cache()
     return main
 
@@ -174,23 +381,29 @@ def phase_encoder(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_decode(dev) -> dict:
+def run_decode(dev, tag: str, overrides, durations) -> dict:
+    """Drive the decode entry point (DecodeRunner) on a synthetic corpus at
+    turbo width with random weights; the launch counts are set to 0 just
+    before the run and read just after. Checks the output files, a finite
+    tcp_wer, and that every encoder layer and every CTC-head call ran the
+    flash kernel."""
+    from ts_asr_whisper_tpu_torch import kernels
     from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
     from ts_asr_whisper_tpu_torch.decode import (DecodeRunner,
                                                  load_decode_config,
                                                  scoring_backend)
+    from ts_asr_whisper_tpu_torch.decoding import beam
     from ts_asr_whisper_tpu_torch.models.dicow import DiCoWEncoder
-    from ts_asr_whisper_tpu_torch.ops import attention as A
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    durations = [60.0] * 8
-    manifest = write_corpus(WORK / "corpus", durations, seed=0)
-    model_dir = WORK / "model"
+    work = WORK / tag
+    shutil.rmtree(work, ignore_errors=True)
+    manifest = write_corpus(work / "corpus", durations, seed=0)
+    model_dir = work / "model"
     model_dir.mkdir(parents=True)
     (model_dir / "config.json").write_text(json.dumps(TURBO))
-    out_dir = WORK / "exp"
+    out_dir = work / "exp"
     cfg = load_decode_config([
-        "+decode=dicow_v3_greedy",
+        *overrides,
         f"model.whisper_model={model_dir}",
         f"data.eval_cutsets=[{manifest}]",
         "training.generation_max_length=128",
@@ -198,31 +411,45 @@ def phase_decode(dev) -> dict:
         f"training.output_dir={out_dir}",
     ])
     t = cfg.training
-    log(f"[decode] batch {t.per_device_eval_batch_size}, beams "
-        f"{t.generation_num_beams}, dtype {cfg.model.dtype}, max length "
+    log(f"[{tag}] batch {t.per_device_eval_batch_size}, beams "
+        f"{t.generation_num_beams}, decoding CTC weight "
+        f"{cfg.decoding.decoding_ctc_weight}, length penalty "
+        f"{cfg.decoding.length_penalty}, dtype {cfg.model.dtype}, max length "
         f"{t.generation_max_length}, timestamps {cfg.data.use_timestamps}")
-
-    encoder_calls = [0]
-
-    def count(module, args, output):
-        if isinstance(module, DiCoWEncoder):
-            encoder_calls[0] += 1
 
     t0 = time.perf_counter()
     runner = DecodeRunner(cfg, dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    hook = torch.nn.modules.module.register_module_forward_hook(count)
-    for name in A.launch_counts:
-        A.launch_counts[name] = 0
+    enc = runner.container.model.encoder
+    calls = {"encoder": 0, "ctc_head": 0}
+
+    def count_encoder(module, args, output):
+        if isinstance(module, DiCoWEncoder):
+            calls["encoder"] += 1
+
+    ctc_logits = enc.ctc_logits
+
+    def counted_ctc_logits(hidden):
+        calls["ctc_head"] += 1
+        return ctc_logits(hidden)
+
+    enc.ctc_logits = counted_ctc_logits
+    hook = torch.nn.modules.module.register_module_forward_hook(count_encoder)
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    beam.counters["beam_steps"] = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         metrics = runner.run()
     finally:
         hook.remove()
+        del enc.ctc_logits
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(A.launch_counts)
+    launches = dict(kernels.launch_counts)
+    steps = beam.counters["beam_steps"]
 
     name = "eval_cutset"
     csv_path = out_dir / f"test_{name}" / "step_0" / "all_session_wer.csv"
@@ -230,29 +457,40 @@ def phase_decode(dev) -> dict:
     tcp = metrics.get(f"eval_{name}_tcp_wer")
     rows = len(runner.eval_datasets[name])
     audio_s = 2 * sum(durations)  # two target speakers per recording
-    log(f"[decode] {rows} rows, {runner.windows_decoded} row-windows, "
-        f"{encoder_calls[0]} encoder calls, wall {wall:.1f} s "
+    log(f"[{tag}] {rows} rows, {runner.windows_decoded} row-windows, "
+        f"{calls['encoder']} encoder calls, {calls['ctc_head']} CTC-head "
+        f"calls, {steps} beam steps, wall {wall:.1f} s "
         f"(+{setup_s:.1f} s model/data set-up), "
         f"{audio_s / wall:.1f} audio-s/s, "
         f"{runner.windows_decoded / wall:.2f} row-windows/s, "
-        f"flash_attn_fwd launches {launches['flash_attn_fwd']}, "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
+        f"launches {launches}, peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
         f"scoring {scoring_backend()}")
-    log(f"[decode] metrics {metrics}")
+    log(f"[{tag}] metrics {metrics}")
     if not csv_path.exists() or len(hyps) != len(durations):
-        raise AssertionError(f"decode outputs missing: {csv_path}, "
+        raise AssertionError(f"{tag} outputs missing: {csv_path}, "
                              f"{len(hyps)} hypothesis files")
     if tcp is None or not math.isfinite(tcp):
-        raise AssertionError(f"no finite tcp_wer in {metrics}")
-    if rows != 16 or encoder_calls[0] == 0:
-        raise AssertionError(f"{rows} rows, {encoder_calls[0]} encoder calls")
-    want = TURBO["encoder_layers"] * encoder_calls[0]
+        raise AssertionError(f"{tag}: no finite tcp_wer in {metrics}")
+    if rows != 2 * len(durations) or calls["encoder"] == 0:
+        raise AssertionError(f"{tag}: {rows} rows, {calls['encoder']} "
+                             "encoder calls")
+    want = TURBO["encoder_layers"] * calls["encoder"] + calls["ctc_head"]
     if launches["flash_attn_fwd"] != want:
-        raise AssertionError(f"flash_attn_fwd launched "
-                             f"{launches['flash_attn_fwd']} times, want "
-                             f"{want} (32 x encoder calls)")
-    phase_decode_loop(runner, dev)
-    return launches
+        raise AssertionError(
+            f"{tag}: flash_attn_fwd launched {launches['flash_attn_fwd']} "
+            f"times, want {want} (32 x encoder calls + CTC-head calls)")
+    return {"runner": runner, "launches": launches, "steps": steps,
+            "calls": calls, "wall": wall}
+
+
+def phase_decode(dev) -> dict:
+    res = run_decode(dev, "greedy", ["+decode=dicow_v3_greedy"], [60.0] * 8)
+    if res["launches"]["ancestry_attn"] or res["launches"]["psi_gather_dot"]:
+        raise AssertionError(f"greedy decode ran beam kernels: "
+                             f"{res['launches']}")
+    phase_decode_loop(res["runner"], dev)
+    return res["launches"]
 
 
 def phase_decode_loop(runner, dev, steps: int = 125) -> None:
@@ -276,22 +514,82 @@ def phase_decode_loop(runner, dev, steps: int = 125) -> None:
         dt = time.perf_counter() - t0
     log(f"[decode] greedy loop alone, batch 16, {steps} steps to full "
         f"length: {dt * 1e3 / steps:.2f} ms/step ({dt:.2f} s)")
+    del model, enc
+
+
+def phase_beam_decode(dev) -> dict:
+    """dicow_v3_beam_joint through the decode entry point; the time inside
+    beam_search (prefill and cross-KV included) gives ms per beam step."""
+    from ts_asr_whisper_tpu_torch.decoding import ctc_rescorer
+    from ts_asr_whisper_tpu_torch.decoding import longform
+
+    beam_search = longform.beam_search
+    beam_s = [0.0]
+
+    def timed_beam_search(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = beam_search(*args, **kwargs)
+        torch.cuda.synchronize()
+        beam_s[0] += time.perf_counter() - t0
+        return out
+
+    gc.collect()  # the greedy phase's model
+    torch.cuda.empty_cache()
+    longform.beam_search = timed_beam_search
+    try:
+        res = run_decode(dev, "beam_joint",
+                         ["+decode=dicow_v3_beam_joint",
+                          "model.ctc_weight=0.3"], [60.0] * 4)
+    finally:
+        longform.beam_search = beam_search
+    steps, launches = res["steps"], res["launches"]
+    gen_cfg = res["runner"].gen_cfg
+    log(f"[beam_joint] {steps} beam steps in {beam_s[0]:.2f} s of "
+        f"beam_search: {beam_s[0] * 1e3 / max(steps, 1):.2f} ms per beam "
+        f"step (Bb {AUDIO_ROWS * BEAMS}), psi path "
+        f"{ctc_rescorer.resolve_psi_impl(gen_cfg.ctc_psi_impl, dev)}")
+    layers = TURBO["decoder_layers"]
+    if gen_cfg.num_beams != BEAMS or not gen_cfg.ctc_weight > 0:
+        raise AssertionError(f"not a beam joint-CTC decode: {gen_cfg}")
+    if steps == 0 or res["calls"]["ctc_head"] == 0:
+        raise AssertionError(f"{steps} beam steps, "
+                             f"{res['calls']['ctc_head']} CTC-head calls")
+    if launches["ancestry_attn"] != layers * steps:
+        raise AssertionError(f"ancestry_attn launched "
+                             f"{launches['ancestry_attn']} times, want "
+                             f"{layers * steps} ({layers} layers x {steps} "
+                             "beam steps)")
+    if launches["psi_gather_dot"] != steps:
+        raise AssertionError(f"psi_gather_dot launched "
+                             f"{launches['psi_gather_dot']} times, want "
+                             f"{steps} (one per beam step)")
+    return launches
 
 
 def main() -> int:
     kind = phase_card()
     dev = torch.device("cuda", 0)
     phase_build()
-    k = phase_kernel(dev)
+    k_flash = phase_kernel(dev)
+    k_anc = phase_ancestry(dev)
+    k_psi = phase_psi(dev)
     phase_encoder(dev)
-    launches = phase_decode(dev)
+    greedy = phase_decode(dev)
+    beam = phase_beam_decode(dev)
+    csrc = "ts_asr_whisper_tpu_torch/kernels/csrc"
+    replaces = {"flash_attn_fwd": "ts_asr_whisper_tpu/ops/attention.py:84",
+                "ancestry_attn": "ts_asr_whisper_tpu/ops/beam_attention.py:110",
+                "psi_gather_dot": "ts_asr_whisper_tpu/ops/psi_gather.py:125"}
+    timing = {"flash_attn_fwd": k_flash, "ancestry_attn": k_anc,
+              "psi_gather_dot": k_psi}
     record = {"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "ts_asr_whisper_tpu_torch/kernels/csrc/flash_attn_fwd.cu",
-        "replaces": "ts_asr_whisper_tpu/ops/attention.py:84",
-        "launches": launches["flash_attn_fwd"],
-        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"]}]}
+        "name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
+        "replaces": replaces[name],
+        "launches": greedy[name] + beam[name],
+        "launches_by_path": {"dicow_v3_greedy": greedy[name],
+                             "dicow_v3_beam_joint": beam[name]},
+        **timing[name]} for name in KERNELS]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -75,10 +75,10 @@ def test_sdpa_plain_path_matches_xla(rng, t):
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     cuda_like = types.SimpleNamespace(device=torch.device("cuda", 0))
-    assert A._route(cuda_like) == "kernel"
-    assert A._route(torch.zeros(1)) == "plain"
+    assert kernels.route(cuda_like, "op") == "kernel"
+    assert kernels.route(torch.zeros(1), "op") == "plain"
     with pytest.raises(RuntimeError, match="no implementation"):
-        A._route(torch.zeros(1, device="meta"))
+        kernels.route(torch.zeros(1, device="meta"), "op")
 
     def no_build():
         raise RuntimeError("nvcc not found")

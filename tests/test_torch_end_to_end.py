@@ -1,6 +1,8 @@
 """The port's decode CLI (``python -m ts_asr_whisper_tpu_torch``) against the
 JAX CLI (``main.main``) on the verify recipe's synthetic corpus and the same
-safetensors weights: identical tcpWER hypothesis files and equal tcp_wer."""
+safetensors weights: identical tcpWER hypothesis files and equal tcp_wer,
+for long-form greedy decode and for beam-5 joint-CTC decode
+(``+decode=dicow_v3_beam_joint``, with the CTC head in the weights)."""
 
 import json
 import subprocess
@@ -25,17 +27,15 @@ MODEL = {"vocab_size": 2000, "num_mel_bins": 80, "d_model": 32,
          "max_source_positions": 1500, "max_target_positions": 64}
 
 
-@pytest.fixture(scope="module")
-def corpus(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("torch_e2e")
+def _make_corpus(tmp, overrides):
     manifest = write_corpus(tmp, durations=(10.0, 7.0), seed=0)
     model_dir = tmp / "model"
     model_dir.mkdir()
     (model_dir / "config.json").write_text(json.dumps(MODEL))
     # the weights the JAX CLI builds for this config, sharpened so that the
     # decode emits text tokens and timestamps instead of all deletions
-    jcfg = load_config(_overrides({"eval": manifest, "model": model_dir},
-                                  tmp / "unused"), n_devices=1)
+    jcfg = load_config(overrides({"eval": manifest, "model": model_dir},
+                                 tmp / "unused"), n_devices=1)
     jc = WhisperContainer(jcfg, seed=7)
     params = jax.tree.map(np.asarray, jc.params)
     emb = params["decoder"]["embed_tokens"] * 60
@@ -47,6 +47,18 @@ def corpus(tmp_path_factory):
     save_safetensors(params_to_hf(params, jc.model_config),
                      str(model_dir / "model.safetensors"))
     return {"eval": manifest, "model": model_dir, "tmp": tmp}
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    return _make_corpus(tmp_path_factory.mktemp("torch_e2e"), _overrides)
+
+
+@pytest.fixture(scope="module")
+def corpus_ctc(tmp_path_factory):
+    """The same corpus, with weights that carry the CTC head."""
+    return _make_corpus(tmp_path_factory.mktemp("torch_e2e_ctc"),
+                        _beam_joint_overrides)
 
 
 def _overrides(corpus, out_dir):
@@ -61,14 +73,36 @@ def _overrides(corpus, out_dir):
             f"training.output_dir={out_dir}"]
 
 
+def _beam_joint_overrides(corpus, out_dir):
+    """dicow_v3_beam_joint (beams 5, batch 2, decoding CTC weight 0.2,
+    length penalty 0.1) on the tiny model, in fp32."""
+    return ["+decode=dicow_v3_beam_joint",
+            f"model.whisper_model={corpus['model']}",
+            "data.train_cutsets=[]", "data.dev_cutsets=[]",
+            f"data.eval_cutsets=[{corpus['eval']}]",
+            "data.train_text_norm=null", "data.eval_text_norm=null",
+            "model.ctc_weight=0.3", "model.dtype=float32",
+            "training.generation_max_length=40", "training.mesh_shape=[1]",
+            "training.save_visualizations=false",
+            f"training.output_dir={out_dir}"]
+
+
 def test_port_cli_matches_jax_cli(corpus, tmp_path):
+    _check_cli(corpus, tmp_path, _overrides)
+
+
+def test_port_beam_joint_cli_matches_jax_cli(corpus_ctc, tmp_path):
+    _check_cli(corpus_ctc, tmp_path, _beam_joint_overrides)
+
+
+def _check_cli(corpus, tmp_path, overrides):
     import main as jax_main
 
     jax_out, port_out = tmp_path / "jax", tmp_path / "port"
-    ref = jax_main.main(_overrides(corpus, jax_out))
+    ref = jax_main.main(overrides(corpus, jax_out))
     proc = subprocess.run(
         [sys.executable, "-m", "ts_asr_whisper_tpu_torch",
-         *_overrides(corpus, port_out)],
+         *overrides(corpus, port_out)],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "2",
              "PYTHONPATH": str(REPO), "HOME": str(tmp_path)})

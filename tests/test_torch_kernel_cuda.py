@@ -1,12 +1,16 @@
-"""The CUDA flash-attention kernel against its plain PyTorch version, on the
-card. Skips without a GPU; run there with
+"""The CUDA kernels of the port against their plain PyTorch versions, on the
+card: encoder flash attention, beam ancestry attention and the candidate
+CTC-psi gather + dot. Skips without a GPU; run there with
 ``python -m pytest tests/test_torch_kernel_cuda.py -m cuda``."""
 
 import numpy as np
 import pytest
 import torch
 
+from ts_asr_whisper_tpu_torch.kernels import launch_counts
 from ts_asr_whisper_tpu_torch.ops import attention as A
+from ts_asr_whisper_tpu_torch.ops import beam_attention as BA
+from ts_asr_whisper_tpu_torch.ops import psi_gather as PG
 
 pytestmark = pytest.mark.cuda
 
@@ -60,3 +64,74 @@ def test_sdpa_dispatches_encoder_attention_to_the_kernel(cuda):
     assert A.launch_counts["flash_attn_fwd"] == before + 1
     ref = A.flash_mha_reference(q, k, v)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+def _ancestry_inputs(bb, n, h, t, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((bb, h, 1, 64)).astype(np.float32) * 0.125
+    kn, vn = (rng.standard_normal((bb, h, 1, 64)).astype(np.float32)
+              for _ in range(2))
+    ck, cv = (rng.standard_normal((bb, h, t, 64)).astype(np.float32)
+              for _ in range(2))
+    hist = rng.integers(0, n, size=(bb, t)).astype(np.int32)
+    out = [torch.from_numpy(x).to(device=device, dtype=dtype)
+           for x in (q, kn, vn, ck, cv)]
+    return out + [torch.from_numpy(hist).to(device)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,pos", [(128, 1), (128, 64), (128, 127),
+                                   (448, 1), (448, 224), (448, 447)])
+def test_ancestry_kernel_matches_plain(cuda, dtype, t, pos):
+    args = _ancestry_inputs(10, 5, 20, t, dtype, cuda, seed=t + pos)
+    before = launch_counts["ancestry_attn"]
+    out = BA.ancestry_attention(*args, pos=pos, n=5)
+    torch.cuda.synchronize()
+    assert launch_counts["ancestry_attn"] == before + 1
+    ref = BA.ancestry_attention_reference(*args, pos=pos, n=5)
+    assert out.dtype == dtype
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def _psi_inputs(device, p_dtype, b_audio=2, v=51866, t=375, bb=10, k=512,
+                seed=0):
+    rng = np.random.default_rng(seed)
+    p = rng.random((b_audio, v, t), dtype=np.float32)
+    p /= p.sum(axis=1, keepdims=True)
+    ids = np.sort(rng.choice(v, size=(bb, k)), axis=1).astype(np.int32)
+    w = rng.random((bb, t), dtype=np.float32)
+    w[:, :50] = 0.0
+    audio_idx = (np.arange(bb) // (bb // b_audio)).astype(np.int32)
+    p_vt = PG.padded_posterior(torch.from_numpy(p).to(device), p_dtype)
+    return (p_vt, torch.from_numpy(audio_idx).to(device),
+            torch.from_numpy(ids).to(device), torch.from_numpy(w).to(device))
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_psi_kernel_matches_plain(cuda, p_dtype):
+    p_vt, audio_idx, ids, w = _psi_inputs(cuda, p_dtype)
+    before = launch_counts["psi_gather_dot"]
+    out = PG.psi_gather_dot(p_vt, audio_idx, ids, w)
+    torch.cuda.synchronize()
+    assert launch_counts["psi_gather_dot"] == before + 1
+    ref = PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w)
+    # fp32 sums of ~375 products in another order
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+def test_psi_kernel_rejects_unaligned_rows(cuda, p_dtype):
+    p_vt, audio_idx, ids, w = _psi_inputs(cuda, p_dtype)
+    before = launch_counts["psi_gather_dot"]
+    with pytest.raises(ValueError, match="16-byte"):  # T=375 unpadded
+        PG.psi_gather_dot(p_vt.contiguous(), audio_idx, ids, w)
+    assert launch_counts["psi_gather_dot"] == before
+
+
+def test_psi_kernel_flags_out_of_range_ids(cuda):
+    p_vt, audio_idx, ids, w = _psi_inputs(cuda, torch.float32, v=1000,
+                                          bb=2, k=16)
+    ids[0, 3] = 1000
+    out = PG.psi_gather_dot(p_vt, audio_idx, ids, w)
+    assert torch.isnan(out[0, 3]) and torch.isfinite(out[1]).all()

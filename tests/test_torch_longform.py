@@ -1,7 +1,8 @@
 """Port ``longform_generate`` vs the JAX package's on the same weights:
 multi-window recordings of unequal lengths in one batch of 3, so that the
 seek loop, the power-of-2 compaction with duplicate rows and the re-blocking
-all run. Sequences exact, ``windows_decoded`` equal."""
+all run, greedy and beam, with and without joint CTC (the same case-fold map
+on both sides). Sequences exact, ``windows_decoded`` equal."""
 
 import numpy as np
 import pytest
@@ -43,7 +44,14 @@ CASES = {
     # the no-speech skip: HF's rule needs both thresholds
     "no_speech_skip": ({"no_speech_threshold": 0.0,
                         "logprob_threshold": 0.0}, False),
+    # dicow_v3_beam_joint's decode settings
+    "beam_joint_ctc": ({"num_beams": 5, "ctc_weight": 0.2,
+                        "length_penalty": 0.1}, False),
+    "beam_no_ctc": ({"num_beams": 3, "length_penalty": 0.1}, False),
+    "greedy_ctc": ({"ctc_weight": 0.2}, False),
 }
+# upper-case token ids -> lower-case ids, as the tokenizer's map gives them
+UPPER_TO_LOWER = np.stack([np.arange(100, 160), np.arange(300, 360)])
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -56,9 +64,11 @@ def test_longform_parity(rng, case):
                      (3, 1))
     ref = jlf.longform_generate(params, jcfg, gen_cfg, feats, stno, att,
                                 forced, detect_lang=detect,
-                                return_segments=True)
+                                return_segments=True,
+                                upper_to_lower=UPPER_TO_LOWER)
     out = tlf.longform_generate(model, gen_cfg, feats, stno, att, forced,
-                                detect_lang=detect, return_segments=True)
+                                detect_lang=detect, return_segments=True,
+                                upper_to_lower=UPPER_TO_LOWER)
     np.testing.assert_array_equal(out.sequences, ref.sequences)
     assert out.windows_decoded == ref.windows_decoded
     assert [[(s.start, s.end, s.tokens.tolist()) for s in segs]
@@ -87,8 +97,8 @@ def test_slice_windows_tail_semantics(rng):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("num_beams", 5), ("ctc_weight", 0.3), ("return_token_timestamps", True),
-    ("cross_kv_quant", True)])
+    ("return_token_timestamps", True), ("cross_kv_quant", True),
+    ("joint_debug", True)])
 def test_out_of_slice_options_raise(field, value):
     gen_cfg = GenerationConfig(**{field: value})
     with pytest.raises(NotImplementedError):

@@ -1,5 +1,6 @@
 """Decode-only orchestration of the port: model container -> eval datasets
--> long-form greedy decode -> SegLST -> tcpWER, single process, one device.
+-> long-form greedy or beam joint-CTC decode -> SegLST -> tcpWER, single
+process, one device.
 
 Counterpart of the decode part of ts_asr_whisper_tpu/train.py
 (``make_generation_config`` :34-78, ``ModelTrainer._build_eval``,
@@ -106,6 +107,18 @@ def scoring_backend() -> str:
     return "native" if native._load() is not None else "numpy"
 
 
+def case_fold_map(tok) -> Optional[np.ndarray]:
+    """(2, n) [upper ids; lower ids] from the tokenizer's lower->upper map:
+    the CTC rescorer always folds case (train.py:183-194)."""
+    upper_map = getattr(tok, "upper_cased_tokens", None)
+    if not upper_map:
+        return None
+    return np.stack([
+        np.fromiter(upper_map.values(), dtype=np.int64, count=len(upper_map)),
+        np.fromiter(upper_map.keys(), dtype=np.int64, count=len(upper_map)),
+    ])
+
+
 def default_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
@@ -145,6 +158,7 @@ class DecodeRunner:
     def evaluate_dataset(self, dataset, output_dir: str) -> Dict[str, float]:
         tok = self.container.tokenizer
         model = self.container.model
+        upper_to_lower = case_fold_map(tok)
         preds = []  # (batch_index, sequences, label keys) per decoded batch
         bs = self.cfg.training.per_device_eval_batch_size
         for bi, batch in eval_batches(dataset, self.collator, bs,
@@ -159,7 +173,7 @@ class DecodeRunner:
             out = longform_generate(
                 model, self.gen_cfg, batch["input_features"],
                 batch["stno_mask"], batch["attention_mask"], forced,
-                detect_lang=detect)
+                detect_lang=detect, upper_to_lower=upper_to_lower)
             self.windows_decoded += out.windows_decoded
             batch_keys = []
             for row in batch["labels"]:

@@ -4,7 +4,8 @@ Counterpart of ts_asr_whisper_tpu/decoding/greedy.py at temperature 0: the
 ``lax.while_loop`` becomes a Python loop over a preallocated token buffer
 that stops once every row has emitted EOS (one host sync per step). Cross-
 attention K/V are computed once per window; the self-attention cache is
-written in place.
+written in place. With a CTC rescorer (decoding/ctc_rescorer.py) the joint
+CTC scores join the attention scores inside the same loop (greedy.py:106-124).
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ def greedy_decode(
     init_tokens: torch.Tensor,      # (B, P) prompt incl. decoder_start
     max_new_tokens: int,
     force_full_length: bool = False,  # benchmarking: ignore the EOS exit
+    ctc_scorer=None,                # optional: decoding/ctc_rescorer.py
+    ctc_state=None,
 ) -> GreedyOutput:
     if gen_cfg.cross_kv_quant:
         raise NotImplementedError("int8 cross-KV is not ported yet")
@@ -69,10 +72,16 @@ def greedy_decode(
     while cur_len < total_len and (force_full_length
                                    or not bool(finished.all())):
         scores = process(logits, tokens, cur_len)
+        if ctc_scorer is not None:
+            scores = torch.log_softmax(scores, dim=-1)
+            scores, ctc_state = ctc_scorer.rescore(ctc_state, tokens,
+                                                   cur_len, scores)
         next_tok = torch.where(finished, pad, scores.argmax(dim=-1))
         logp = torch.log_softmax(scores, dim=-1)
         tok_logp = logp.gather(1, next_tok[:, None])[:, 0]
         sum_logprobs += torch.where(finished, 0.0, tok_logp)
+        if ctc_scorer is not None:
+            ctc_state = ctc_scorer.update_state(ctc_state, next_tok, None)
         tokens[:, cur_len] = next_tok
         finished |= next_tok == eos
         hidden = dec.decoder_cached(next_tok[:, None], cur_len, cache,

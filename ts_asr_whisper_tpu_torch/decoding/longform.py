@@ -1,14 +1,14 @@
-"""Long-form (arbitrary-length) greedy decoding of the port: the host-driven
-seek loop around the per-window encoder and greedy decode.
+"""Long-form (arbitrary-length) decoding of the port: the host-driven seek
+loop around the per-window encoder and greedy or beam decode.
 
 Counterpart of ts_asr_whisper_tpu/decoding/longform.py:342-683, device side
 in torch: the full-recording features and STNO stay on the device for the
 whole call and each window is sliced there; active rows are compacted into a
 power-of-2 bucket padded with duplicate rows (the first occurrence wins);
 one device->host fetch per window batch; language detection on the first
-window; the no-speech skip. Out of this slice, and refused with
-``NotImplementedError``: beam search, joint CTC, temperature-fallback
-retries, token timestamps, int8 cross-KV.
+window; joint CTC rescoring from the window's CTC logits; beam search; the
+no-speech skip. Refused with ``NotImplementedError``: temperature-fallback
+retries, token timestamps, int8 cross-KV and the joint-decode debug dump.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import torch.nn.functional as F
 from ts_asr_whisper_tpu.decoding.generation_config import GenerationConfig
 
 from ..models.dicow import DiCoW
+from .beam import beam_search
+from .ctc_rescorer import CTCRescorer, init_ctc_state
 from .greedy import greedy_decode
 
 # ---------------------------------------------------------------------------
@@ -285,10 +287,9 @@ def detect_language(model: DiCoW, gen_cfg: GenerationConfig,
 
 def check_scope(gen_cfg: GenerationConfig) -> None:
     """Refuse what this slice of the port does not run."""
-    if gen_cfg.num_beams > 1:
-        raise NotImplementedError("beam search is not ported yet")
-    if gen_cfg.ctc_weight > 0:
-        raise NotImplementedError("joint CTC decoding is not ported yet")
+    if gen_cfg.joint_debug:
+        raise NotImplementedError(
+            "the joint-decode debug dump (joint_debug) is not ported yet")
     if gen_cfg.return_token_timestamps:
         raise NotImplementedError("token timestamps are not ported yet")
     if gen_cfg.cross_kv_quant:
@@ -318,6 +319,7 @@ def longform_generate(
     forced_decoder_ids: np.ndarray,  # (B, P) decoder prompts
     return_segments: bool = False,
     detect_lang: bool = False,      # fill forced_decoder_ids[:, 1]
+    upper_to_lower: Optional[np.ndarray] = None,  # (2, n) CTC case-fold map
 ) -> LongformOutput:
     """Batched long-form transcription on the model's device. Returns a
     LongformOutput whose ``sequences`` carry re-blocked 0-30 s timestamps
@@ -376,18 +378,39 @@ def longform_generate(
         forced_rows = forced_dev[torch.as_tensor(rows, device=dev)]
 
         enc = model.encoder(window, stno_window)
-        out = greedy_decode(model, gen_cfg, enc, forced_rows, max_new)
+
+        ctc_scorer = ctc_state = None
+        if gen_cfg.ctc_weight > 0:
+            blank = cfg.ctc_vocab_size - 1
+            ctc_scorer = CTCRescorer(
+                blank_id=blank, eos_id=gen_cfg.eos_token_id,
+                timestamp_begin=ts_begin, ctc_weight=gen_cfg.ctc_weight,
+                k=min(500, ts_begin - 1), prefix_len=prompt_len)
+            ctc_state = init_ctc_state(
+                model.encoder.ctc_logits(enc), blank, upper_to_lower,
+                num_beams=max(gen_cfg.num_beams, 1), k=ctc_scorer.k,
+                p_bf16=gen_cfg.ctc_p_bf16, psi_impl=gen_cfg.ctc_psi_impl)
+        if gen_cfg.num_beams > 1:
+            out = beam_search(model, gen_cfg, enc, forced_rows, max_new,
+                              gen_cfg.num_beams, ctc_scorer, ctc_state)
+            # beam: the length-penalized score is the logprob value
+            # (longform.py:562-571, HF _need_fallback's beam branch)
+            lp_value = out.scores
+        else:
+            out = greedy_decode(model, gen_cfg, enc, forced_rows, max_new,
+                                ctc_scorer=ctc_scorer, ctc_state=ctc_state)
+            lp_value = out.sum_logprobs
 
         # ONE device->host transfer per window batch: token ids and fp32
         # scores are exact in float64
         seq_len = out.sequences.shape[1]
         fetched = torch.cat([
             out.sequences.double(), out.lengths[:, None].double(),
-            out.sum_logprobs[:, None].double(),
+            lp_value[:, None].double(),
             out.no_speech_probs[:, None].double()], dim=1).cpu().numpy()
         sequences = np.zeros((b, seq_len), dtype=np.int64)
         lengths = np.zeros(b, dtype=np.int64)
-        sum_logprobs = np.zeros(b, dtype=np.float64)
+        lp_values = np.zeros(b, dtype=np.float64)
         no_speech = np.zeros(b, dtype=np.float64)
         seen_rows = set()
         for j, i in enumerate(rows):
@@ -396,13 +419,16 @@ def longform_generate(
             seen_rows.add(i)
             sequences[i] = fetched[j, :seq_len].astype(np.int64)
             lengths[i] = int(fetched[j, seq_len])
-            sum_logprobs[i] = fetched[j, seq_len + 1]
+            lp_values[i] = fetched[j, seq_len + 1]
             no_speech[i] = fetched[j, seq_len + 2]
 
         # no-speech skip (HF _need_fallback): silence iff the SOT-step
         # no-speech prob exceeds its threshold AND the decode is
         # low-confidence; both thresholds must be set
-        avg_lp = sum_logprobs / np.maximum(lengths - prompt_len, 1)
+        if gen_cfg.num_beams > 1:
+            avg_lp = lp_values
+        else:
+            avg_lp = lp_values / np.maximum(lengths - prompt_len, 1)
         if (gen_cfg.no_speech_threshold is None
                 or gen_cfg.logprob_threshold is None):
             skip_silence = np.zeros(b, dtype=bool)

@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -27,8 +29,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# the ``dtype`` argument of every C entry point
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# kernel name -> number of launches; each wrapper adds one where it launches
+# its kernel, and nowhere else
+launch_counts: Dict[str, int] = {"flash_attn_fwd": 0, "ancestry_attn": 0,
+                                  "psi_gather_dot": 0}
 # name -> {"seconds": build time (0.0 when reused), "log": nvcc output}
 build_info: Dict[str, dict] = {}
+
+
+def route(x, op: str) -> str:
+    """Which implementation runs for a tensor on ``x.device``: the plain
+    PyTorch version only for the CPU, the kernel for CUDA, nothing else."""
+    kind = x.device.type
+    if kind == "cpu":
+        return "plain"
+    if kind == "cuda":
+        return "kernel"
+    raise RuntimeError(f"{op}: no implementation for device {kind}")
 
 
 def find_nvcc() -> str:
@@ -52,7 +71,8 @@ def build(name: str) -> Path:
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib = out_dir / f"lib{name}.so"
     if lib.exists():
-        build_info[name] = {"seconds": 0.0, "log": ""}
+        # keep the record of a build made earlier in this process
+        build_info.setdefault(name, {"seconds": 0.0, "log": ""})
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".lib{name}.{os.getpid()}.so"
@@ -68,6 +88,16 @@ def build(name: str) -> Path:
     return lib
 
 
+def build_all(names) -> None:
+    """Build several sources at once: one ``nvcc`` per source, all started
+    together (each build is single-threaded and seconds long)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        list(pool.map(build, names))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
     with _lock:
@@ -77,10 +107,25 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def flash_attn_fwd_lib() -> ctypes.CDLL:
-    lib = load("flash_attn_fwd")
-    fn = lib.flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+def _bind(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu`` and type its C entry point ``name``:
+    ``n_ptrs`` pointers, ``n_ints`` ints, then the stream; it returns the
+    launch's cudaError_t."""
+    lib = load(name)
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def flash_attn_fwd_lib() -> ctypes.CDLL:
+    return _bind("flash_attn_fwd", 4, 5)
+
+
+def ancestry_attn_lib() -> ctypes.CDLL:
+    return _bind("ancestry_attn", 7, 7)
+
+
+def psi_gather_dot_lib() -> ctypes.CDLL:
+    return _bind("psi_gather_dot", 5, 8)

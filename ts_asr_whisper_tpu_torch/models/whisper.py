@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import plain_sdpa, sdpa
+from ..ops.beam_attention import ancestry_attention
 from .config import DiCoWConfig
 
 KVCache = Dict[str, torch.Tensor]
@@ -127,6 +128,25 @@ class DecoderLayer(EncoderLayer):
         return x + self.mlp(self.final_layer_norm(x), dtype)
 
 
+def cross_attention(q: torch.Tensor, ck: torch.Tensor,
+                    cv: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention, q pre-scaled, (B_q, H, T_q, hd). When q's
+    batch is a multiple n of the cross-KV batch (beam search: n hypotheses
+    per audio row), the n beams fold into the query axis instead of the K/V
+    being repeated per beam (whisper.py:327-346): same math, since cross-
+    attention has no position mask, and the cross-KV read stays at audio-
+    batch size."""
+    b_kv, bq = ck.shape[0], q.shape[0]
+    if bq == b_kv:
+        return plain_sdpa(q, ck, cv)
+    n = bq // b_kv
+    _, h, tq, hd = q.shape
+    qf = q.reshape(b_kv, n, h, tq, hd).transpose(1, 2) \
+        .reshape(b_kv, h, n * tq, hd)
+    out = plain_sdpa(qf, ck, cv).reshape(b_kv, h, n, tq, hd).transpose(1, 2)
+    return out.reshape(bq, h, tq, hd)
+
+
 def sinusoidal_positions(length: int, d_model: int) -> np.ndarray:
     """Whisper encoder sinusoids (whisper.py:807-812)."""
     log_timescale = math.log(10000) / (d_model // 2 - 1)
@@ -198,6 +218,7 @@ class WhisperDecoder(nn.Module):
         """Run T_new tokens at positions pos.. through the decoder, writing
         their K/V into ``kv_cache`` in place (whisper.py:396-549 without
         beam_src / alignment_slots). Returns the final hidden (B, T_new, D).
+        ``cross_kv`` may hold B / n audio rows for B = n beams per row.
 
         Query i sees cache keys j <= pos + i (whisper.py:443-446); the keys
         past pos + T_new are left out instead of masked, which changes no
@@ -220,9 +241,40 @@ class WhisperDecoder(nn.Module):
                               self_mask)
             x = x + linear(layer.self_attn.out_proj, merge_heads(attn), dt)
             h = layer.encoder_attn_layer_norm(x)
-            q = layer.encoder_attn.query(h, dt)
-            ck, cv = cross_kv[li]
-            attn = plain_sdpa(q, ck, cv)
-            x = x + linear(layer.encoder_attn.out_proj, merge_heads(attn), dt)
-            x = x + layer.mlp(layer.final_layer_norm(x), dt)
+            x = self._cross_and_mlp(layer, x, cross_kv[li])
+        return self.layer_norm(x)
+
+    def _cross_and_mlp(self, layer: DecoderLayer, x: torch.Tensor,
+                       cross) -> torch.Tensor:
+        dt = self.cfg.compute_dtype
+        h = layer.encoder_attn_layer_norm(x)
+        q = layer.encoder_attn.query(h, dt)
+        attn = cross_attention(q, *cross)
+        x = x + linear(layer.encoder_attn.out_proj, merge_heads(attn), dt)
+        return x + layer.mlp(layer.final_layer_norm(x), dt)
+
+    def decoder_cached_ancestry(self, input_ids: torch.Tensor, pos: int,
+                                kv_cache: KVCache, cross_kv: CrossKV,
+                                hist: torch.Tensor, n: int) -> torch.Tensor:
+        """One token per hypothesis through the decoder for beam search on an
+        append-only cache (whisper.py:552-661, the 'pallas' semantics):
+        input_ids (Bb, 1); kv_cache (L, Bb, H, T, hd), never permuted;
+        hist (Bb, T) the group-local ancestor row of each position; n beams
+        per audio row of ``cross_kv``. Each layer's self-attention reads the
+        pre-update cache through ``ops/beam_attention.py`` (the CUDA kernel
+        on the card), then this step's K/V is written at ``pos`` in place.
+        Returns the final hidden (Bb, 1, D)."""
+        dt = self.cfg.compute_dtype
+        x = self.embed(input_ids, pos)
+        for li, layer in enumerate(self.layers):
+            h = layer.self_attn_layer_norm(x)
+            q = layer.self_attn.query(h, dt)
+            k_new, v_new = layer.self_attn.keys_values(h, dt)
+            cache_k, cache_v = kv_cache["k"][li], kv_cache["v"][li]
+            attn = ancestry_attention(q, k_new, v_new, cache_k, cache_v,
+                                      hist, pos, n)
+            cache_k[:, :, pos] = k_new[:, :, 0]
+            cache_v[:, :, pos] = v_new[:, :, 0]
+            x = x + linear(layer.self_attn.out_proj, merge_heads(attn), dt)
+            x = self._cross_and_mlp(layer, x, cross_kv[li])
         return self.layer_norm(x)

@@ -16,13 +16,10 @@ from typing import Optional
 
 import torch
 
+from ..kernels import DTYPE_CODES, launch_counts, route
+
 F32_MIN = torch.finfo(torch.float32).min
 HEAD_DIM = 64  # the kernel's only head dim: every Whisper size has it
-
-# kernel name -> number of launches, incremented where the kernel launches
-launch_counts = {"flash_attn_fwd": 0}
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def resolve_attention_impl(impl: str, device: torch.device) -> str:
@@ -54,21 +51,10 @@ def flash_mha_reference(q: torch.Tensor, k: torch.Tensor,
     return (o / denom).to(q.dtype)
 
 
-def _route(x) -> str:
-    """Which implementation runs for a tensor on ``x.device``: the plain
-    version only for the CPU, the kernel for CUDA, nothing else."""
-    kind = x.device.type
-    if kind == "cpu":
-        return "plain"
-    if kind == "cuda":
-        return "kernel"
-    raise RuntimeError(f"flash_mha_fwd: no implementation for device {kind}")
-
-
 def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
     """(B, H, T, hd) -> (B, H, T, hd); q pre-scaled, no mask (encoder)."""
-    if _route(q) == "plain":
+    if route(q, "flash_mha_fwd") == "plain":
         return flash_mha_reference(q, k, v)
     from ..kernels import flash_attn_fwd_lib
 
@@ -82,14 +68,14 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor,
     if d != HEAD_DIM:
         raise ValueError(f"flash_mha_fwd: head dim {d} (kernel takes "
                          f"{HEAD_DIM})")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise ValueError(f"flash_mha_fwd: dtype {q.dtype} (kernel takes "
                          "float32 and bfloat16)")
     q, k, v = (x.contiguous() for x in (q, k, v))
     out = torch.empty_like(q)
     err = lib.flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, t,
-        d, _DTYPE_CODES[q.dtype], q.device.index or 0,
+        d, DTYPE_CODES[q.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
