@@ -6,10 +6,16 @@
 Phases, each of which fails the run (non-zero exit) when it breaks:
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
      no CUDA device -> exit 2, there is no CPU path;
-  2. build the three CUDA kernels from kernels/csrc with nvcc, one nvcc per
+  2. build the four CUDA kernels from kernels/csrc with nvcc, one nvcc per
      source, all started together;
   3. flash attention vs its plain PyTorch version at the encoder's shapes,
      bf16 and fp32, with errors and median times (CUDA events, warmed up);
+     F.scaled_dot_product_attention timed beside it as a yardstick only;
+  3b. the flash-attention backward vs its plain version at the fine-tune
+     shape (4, 20, 1500, 64) and T 1499 and 257, bf16 and fp32, timed
+     with CUDA events and torch.profiler beside the backward of
+     F.scaled_dot_product_attention; FlashMHA end to end against autograd
+     through the plain forward in fp32;
   4. beam ancestry attention vs its plain version at beam 5 x batch 2,
      20 heads, cache lengths 128 and 448, bf16 and fp32;
   5. the candidate CTC-psi gather + dot vs its plain version at the turbo
@@ -27,9 +33,19 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
   8. long-form beam-5 joint-CTC decode (dicow_v3_beam_joint) of 8 rows
      (4 two-speaker recordings of 60 s, 4 calls of batch 2) at the same
      width: every beam step must have run the ancestry kernel in each
-     decoder layer and the psi kernel once.
+     decoder layer and the psi kernel once; both decodes must have scored
+     with the native tcpWER library, not the numpy fallback;
+  9. the DiCoW v3 fine-tune (+train=dicow_v3) through the training entry
+     point (ModelTrainer) at the same width: 16 rows (8 two-speaker
+     recordings of 30 s), 8 micro-batches of 4 with gradient accumulation
+     over 2, 2 preheat updates then 2 base updates with a fresh optimizer,
+     and the HF export: every loss finite, the flash forward and backward
+     kernels launched in every encoder layer and the CTC head of every
+     micro-batch, the preheat phase changing only preheat parameters, the
+     base phase leaving the decoder bit-identical, the export loading
+     strictly into the port's container.
 The line before the last is a JSON record of the kernels; the last line is
-{"ok": true, "device": {...}}. Nothing here imports jax.
+{"ok": true, "device": {...}}. Nothing here imports jax or the JAX package.
 """
 
 from __future__ import annotations
@@ -43,7 +59,9 @@ import sys
 import time
 from pathlib import Path
 
-sys.modules["jax"] = None  # the port must never reach jax
+# the port must never reach jax, nor any module of the JAX package
+sys.modules["jax"] = None
+sys.modules["ts_asr_whisper_tpu"] = None
 
 import torch  # noqa: E402
 
@@ -54,11 +72,23 @@ TURBO = {"vocab_size": 51866, "num_mel_bins": 128, "d_model": 1280,
          "encoder_attention_heads": 20, "decoder_attention_heads": 20,
          "encoder_ffn_dim": 5120, "decoder_ffn_dim": 5120,
          "max_source_positions": 1500, "max_target_positions": 448}
-KERNELS = ("flash_attn_fwd", "ancestry_attn", "psi_gather_dot")
+KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "ancestry_attn",
+           "psi_gather_dot")
 ENC_SHAPE = (16, 20, 1500, 64)   # turbo encoder attention at batch 16
 RAGGED_T = (257, 1000, 1499)
 TOLS = {torch.float32: (2e-5, 1e-5),   # as tests/test_attention.py
         torch.bfloat16: (1e-2, 1e-2)}  # bf16 rounding of p and out dominates
+# the backward at the fine-tune's micro-batch of 4
+BWD_SHAPE = (4, 20, 1500, 64)
+BWD_T = (1500, 1499, 257)
+BWD_F32_TOL = 2e-4   # atol = rtol, as tests/test_attention.py:63
+# bf16: relative error of dq/dk/dv in Frobenius norm; the bf16 rounding of
+# ds and p before the products dominates
+BWD_BF16_REL = 1e-2
+# one H100 SXM (NVIDIA data sheet): dense bf16 tensor-core and fp32 rates,
+# memory rate
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
 # fp32 encoder, kernel vs plain attention: both fp32 with no TF32; the only
 # difference is summation order (~1e-6 per attention), carried through 32
 # residual layers and the FDDTs of a random-weight model
@@ -124,6 +154,22 @@ def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
+def bound(flop: float, nbytes: float, dtype=torch.bfloat16) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak rate for their type and the bytes over the memory rate."""
+    t_ops = flop / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def sdpa_fwd(q, k, v):
+    """F.scaled_dot_product_attention with the port's pre-scaled q: the
+    yardstick of the flash kernels, never called by the port."""
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                            scale=1.0)
+
+
 def phase_card() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -182,8 +228,98 @@ def phase_kernel(dev) -> dict:
         if not ok:
             raise AssertionError(f"kernel disagrees at {shape} {dt}")
         if shape == ENC_SHAPE and dt == torch.bfloat16:
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            lib_ms = median_ms(lambda: sdpa_fwd(q, k, v))
+            nbytes = 4 * q.numel() * q.element_size()  # q, k, v in, out
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    **bound(flop, nbytes), "library_ms": lib_ms}
+            log(f"[kernel] {tuple(shape)} bf16: F.scaled_dot_product_"
+                f"attention {lib_ms:.3f} ms; bound {main['bound_ms']:.4f} "
+                f"ms ({main['bound_by']})")
         del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_flash_bwd(dev) -> dict:
+    """The backward kernel vs flash_mha_bwd_reference at the fine-tune's
+    shapes; then FlashMHA (kernel forward and backward) against autograd
+    through the plain forward, fp32."""
+    from ts_asr_whisper_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, h, _, d = BWD_SHAPE
+    main = {}
+    for t in BWD_T:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, g = (torch.randn(b, h, t, d, device=dev, generator=gen)
+                          * s for s in (0.125, 1.0, 1.0, 1.0))
+            q, k, v, g = (x.to(dt) for x in (q, k, v, g))
+            out = A.flash_mha_bwd(q, k, v, g)
+            ref = A.flash_mha_bwd_reference(q, k, v, g)
+            torch.cuda.synchronize()
+            errs, rels, ok = [], [], True
+            for o, r in zip(out, ref):
+                o, r = o.float(), r.float()
+                errs.append((o - r).abs().max().item())
+                rels.append(((o - r).norm() / r.norm()).item())
+                if dt == torch.float32:
+                    ok = ok and torch.allclose(o, r, atol=BWD_F32_TOL,
+                                               rtol=BWD_F32_TOL)
+                else:
+                    ok = ok and rels[-1] <= BWD_BF16_REL
+            ok = ok and all(o.dtype == dt for o in out)
+            tol = (f"atol/rtol {BWD_F32_TOL}" if dt == torch.float32
+                   else f"Frobenius rel <= {BWD_BF16_REL}")
+            ms = median_ms(lambda: A.flash_mha_bwd(q, k, v, g))
+            plain_ms = median_ms(
+                lambda: A.flash_mha_bwd_reference(q, k, v, g), reps=5)
+            flop = 10 * b * h * t * t * d
+            log(f"[flash_bwd] ({b}, {h}, {t}, {d}) {str(dt)[6:]}: dq/dk/dv "
+                f"max_abs_err {', '.join(f'{e:.3e}' for e in errs)}, "
+                f"Frobenius rel {', '.join(f'{r:.3e}' for r in rels)} "
+                f"({tol}) kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s) "
+                f"plain {plain_ms:.3f} ms")
+            if not ok:
+                raise AssertionError(f"backward kernel disagrees at T {t} "
+                                     f"{dt}")
+            if t == BWD_SHAPE[2] and dt == torch.bfloat16:
+                dev_ms = device_ms(lambda: A.flash_mha_bwd(q, k, v, g))
+                qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+                lib_out = sdpa_fwd(qr, kr, vr)
+
+                def lib_bwd():
+                    torch.autograd.grad(lib_out, (qr, kr, vr), g,
+                                        retain_graph=True)
+
+                lib_ms = median_ms(lib_bwd)
+                nbytes = 7 * q.numel() * q.element_size()  # q k v g, dq dk dv
+                main = {"max_abs_err": max(errs), "frobenius_rel": max(rels),
+                        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                        **bound(flop, nbytes), "library_ms": lib_ms}
+                log(f"[flash_bwd] bf16 main shape: device {fmt_ms(dev_ms)}, "
+                    f"F.scaled_dot_product_attention backward {lib_ms:.3f} "
+                    f"ms, bound {main['bound_ms']:.4f} ms "
+                    f"({main['bound_by']})")
+                del qr, kr, vr, lib_out
+            del q, k, v, g, out, ref
+
+    # FlashMHA end to end (forward and backward kernels) vs autograd
+    # through the plain forward, fp32
+    q, k, v, w = (torch.randn(BWD_SHAPE, device=dev, generator=gen) * s
+                  for s in (0.125, 1.0, 1.0, 1.0))
+    grads = []
+    for fwd in (A.FlashMHA.apply, A.flash_mha_reference):
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        (fwd(*xs) * w).sum().backward()
+        grads.append([x.grad for x in xs])
+    torch.cuda.synchronize()
+    err = max((a - r).abs().max().item() for a, r in zip(*grads))
+    log(f"[flash_bwd] FlashMHA vs autograd through the plain forward, fp32 "
+        f"{BWD_SHAPE}: max_abs_err {err:.3e} (atol/rtol {BWD_F32_TOL})")
+    if not all(torch.allclose(a, r, atol=BWD_F32_TOL, rtol=BWD_F32_TOL)
+               for a, r in zip(*grads)):
+        raise AssertionError("FlashMHA gradients disagree with autograd")
+    del q, k, v, w, grads
     torch.cuda.empty_cache()
     return main
 
@@ -233,9 +369,16 @@ def phase_ancestry(dev) -> dict:
                     raise AssertionError(
                         f"ancestry kernel disagrees at T {t} pos {pos} {dt}")
                 if (t, pos, dt) == ANC_MAIN:
+                    # the K/V rows before pos of one layer's cache, the new
+                    # K/V, q and out, the ancestor rows; ~1 FLOP per byte
+                    item = args[0].element_size()
+                    nbytes = (2 * bb * h * pos * 64 * item
+                              + 4 * bb * h * 64 * item + bb * t * 4)
+                    flop = 4 * bb * h * (pos + 1) * 64
                     main = {"max_abs_err": err, "ms": ms,
                             "plain_ms": plain_ms, "device_ms": dev_ms,
-                            "plain_device_ms": plain_dev_ms}
+                            "plain_device_ms": plain_dev_ms,
+                            **bound(flop, nbytes, dt), "library_ms": None}
     return main
 
 
@@ -329,9 +472,14 @@ def phase_psi(dev) -> dict:
         if not ok:
             raise AssertionError(f"psi kernel disagrees ({dt})")
         if dt == torch.float32:
+            # the gathered candidate rows (each read once), w, the sums
+            nbytes = (ids.numel() * CTC_T * p_vt.element_size()
+                      + w.numel() * 4 + vals.numel() * 4)
+            flop = 2 * ids.numel() * CTC_T
             main = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
                     "plain_ms": plain_ms, "device_ms": dev_ms,
-                    "plain_device_ms": plain_dev_ms}
+                    "plain_device_ms": plain_dev_ms,
+                    **bound(flop, nbytes, dt), "library_ms": None}
         del p_vt
     del logp, logp_vt
     torch.cuda.empty_cache()
@@ -388,10 +536,9 @@ def run_decode(dev, tag: str, overrides, durations) -> dict:
     tcp_wer, and that every encoder layer and every CTC-head call ran the
     flash kernel."""
     from ts_asr_whisper_tpu_torch import kernels
+    from ts_asr_whisper_tpu_torch.config import load_config
     from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
-    from ts_asr_whisper_tpu_torch.decode import (DecodeRunner,
-                                                 load_decode_config,
-                                                 scoring_backend)
+    from ts_asr_whisper_tpu_torch.decode import DecodeRunner, scoring_backend
     from ts_asr_whisper_tpu_torch.decoding import beam
     from ts_asr_whisper_tpu_torch.models.dicow import DiCoWEncoder
 
@@ -402,7 +549,7 @@ def run_decode(dev, tag: str, overrides, durations) -> dict:
     model_dir.mkdir(parents=True)
     (model_dir / "config.json").write_text(json.dumps(TURBO))
     out_dir = work / "exp"
-    cfg = load_decode_config([
+    cfg = load_config([
         *overrides,
         f"model.whisper_model={model_dir}",
         f"data.eval_cutsets=[{manifest}]",
@@ -472,6 +619,11 @@ def run_decode(dev, tag: str, overrides, durations) -> dict:
                              f"{len(hyps)} hypothesis files")
     if tcp is None or not math.isfinite(tcp):
         raise AssertionError(f"{tag}: no finite tcp_wer in {metrics}")
+    if scoring_backend() != "native":
+        from ts_asr_whisper_tpu_torch.eval import native
+
+        raise AssertionError(f"{tag}: scored with the numpy fallback; "
+                             f"native build: {native.build_log}")
     if rows != 2 * len(durations) or calls["encoder"] == 0:
         raise AssertionError(f"{tag}: {rows} rows, {calls['encoder']} "
                              "encoder calls")
@@ -567,28 +719,208 @@ def phase_beam_decode(dev) -> dict:
     return launches
 
 
+def _snapshot(model) -> dict:
+    return {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
+
+
+def _changed(a: dict, b: dict) -> set:
+    return {n for n in a if not torch.equal(a[n], b[n])}
+
+
+def phase_train(dev) -> dict:
+    """+train=dicow_v3 through ModelTrainer, as the CLI drives it, on a
+    synthetic corpus at turbo width with random weights. The launch counts
+    are set to 0 just before the run and read just after."""
+    from safetensors.torch import load_file
+
+    from ts_asr_whisper_tpu_torch import kernels
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
+    from ts_asr_whisper_tpu_torch.models.containers import WhisperContainer
+    from ts_asr_whisper_tpu_torch.models.convert import normalize_state_dict
+    from ts_asr_whisper_tpu_torch.train import ModelTrainer
+    from ts_asr_whisper_tpu_torch.training import trainer as trainer_mod
+
+    gc.collect()  # the decode phases' models
+    torch.cuda.empty_cache()
+    work = WORK / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    manifest = write_corpus(work / "corpus", [30.0] * 8, seed=1)
+    model_dir = work / "model"
+    model_dir.mkdir(parents=True)
+    (model_dir / "config.json").write_text(json.dumps(TURBO))
+    out_dir = work / "exp"
+    cfg = load_config([
+        "+train=dicow_v3", f"model.whisper_model={model_dir}",
+        "model.reinit_encoder_from=null", f"data.train_cutsets=[{manifest}]",
+        "data.dev_cutsets=[]", "data.eval_cutsets=[]",
+        "data.dataset_weights=null", "aug.musan_root=null",
+        "training.overall_batch_size=8",
+        "training.gradient_accumulation_steps=2", "training.max_steps=8",
+        "training.use_fddt_only_n_steps=4", "training.warmup_steps=0",
+        "training.eval_strategy=no", "training.save_strategy=no",
+        "training.logging_steps=1", f"training.output_dir={out_dir}"])
+    t = cfg.training
+    k = t.gradient_accumulation_steps
+    t0 = time.perf_counter()
+    mt = ModelTrainer(cfg, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model, mc = mt.model, mt.container.model_config
+    # flash calls per micro-batch: every encoder layer's self-attention and
+    # the CTC head's bare self-attention (q_len = kv_len = 1500, no mask);
+    # the decoder's attention is masked or cross, so it stays plain
+    per_batch = mc.encoder_layers + int(
+        mc.ctc_weight > 0 and (mc.additional_layer
+                               or mc.additional_self_attention_layer))
+    log(f"[train] dicow_v3: {len(mt.train_dataset)} rows, micro-batch "
+        f"{t.per_device_train_batch_size}, accumulation {k}, "
+        f"{t.max_steps} micro-batches ({t.use_fddt_only_n_steps} preheat), "
+        f"dtype {mc.dtype} params {cfg.model.param_dtype}, CTC weight "
+        f"{mc.ctc_weight}, gradient checkpointing "
+        f"{t.gradient_checkpointing}, {per_batch} flash calls per "
+        f"micro-batch; set-up {setup_s:.1f} s")
+
+    snaps = {"start": _snapshot(model)}
+    phase_labels = {}
+    unfreeze = trainer_mod.Trainer._maybe_unfreeze
+
+    def watched_unfreeze(self):
+        phase = self.state.phase
+        if phase == "preheat":
+            phase_labels["preheat"] = dict(self.labels)
+        unfreeze(self)
+        if phase == "preheat" and self.state.phase == "base":
+            torch.cuda.synchronize()
+            snaps["preheat"] = _snapshot(self.model)
+            phase_labels["base"] = dict(self.labels)
+
+    train_loop = trainer_mod.Trainer.train
+    loop_s = []
+
+    def timed_loop(self, it):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = train_loop(self, it)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t1)
+        return out
+
+    trainer_mod.Trainer._maybe_unfreeze = watched_unfreeze
+    trainer_mod.Trainer.train = timed_loop
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        mt.train()
+    finally:
+        trainer_mod.Trainer._maybe_unfreeze = unfreeze
+        trainer_mod.Trainer.train = train_loop
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    snaps["end"] = _snapshot(model)
+
+    recs = [json.loads(line) for line in
+            (out_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in recs]
+    updates = t.max_steps // k
+    loop = loop_s[0]
+    log(f"[train] {t.max_steps} micro-batches, {updates} updates: training "
+        f"loop {loop:.2f} s, {loop * 1e3 / updates:.0f} ms per optimizer "
+        f"update, {loop / t.max_steps * 1e3:.0f} ms per micro-batch of "
+        f"{t.per_device_train_batch_size} (first steps' warm-up and data "
+        f"loading included); ModelTrainer.train {wall:.1f} s with the HF "
+        f"export; peak mem {peak:.1f} GiB; launches {launches}")
+    log(f"[train] losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(r['grad_norm'], 4) for r in recs]}")
+    if len(recs) != t.max_steps or not all(
+            math.isfinite(r[key]) for r in recs
+            for key in ("loss", "dec_loss", "ctc_loss", "grad_norm")):
+        raise AssertionError(f"train: {len(recs)} logged steps, not all "
+                             f"finite: {recs}")
+    want = per_batch * t.max_steps
+    if not launches["flash_attn_fwd"] == launches["flash_attn_bwd"] == want:
+        raise AssertionError(
+            f"train: flash launches fwd {launches['flash_attn_fwd']} bwd "
+            f"{launches['flash_attn_bwd']}, want {want} ({per_batch} x "
+            f"{t.max_steps} micro-batches)")
+    if set(phase_labels) != {"preheat", "base"}:
+        raise AssertionError(f"train: phases seen {sorted(phase_labels)}")
+    pre = {n for n, lab in phase_labels["preheat"].items()
+           if lab == "preheat"}
+    changed = _changed(snaps["start"], snaps["preheat"])
+    if not changed or not changed <= pre:
+        raise AssertionError(f"preheat changed {len(changed)} tensors, "
+                             f"{sorted(changed - pre)[:5]} outside the "
+                             f"{len(pre)} preheat tensors")
+    changed = _changed(snaps["preheat"], snaps["end"])
+    dec = {n for n in snaps["end"] if ".decoder." in n}
+    base = {n for n, lab in phase_labels["base"].items() if lab == "base"}
+    if changed & dec or not changed & base:
+        raise AssertionError(f"base phase changed {len(changed & dec)} "
+                             f"decoder tensors, {len(changed & base)} base "
+                             "tensors")
+    log(f"[train] preheat changed {len(_changed(snaps['start'], snaps['preheat']))}"
+        f" of {len(pre)} preheat tensors and nothing else; base changed "
+        f"{len(changed)} tensors ({len(changed & base)} base), decoder "
+        f"({len(dec)} tensors) bit-identical")
+
+    # the export loads strictly into the port's container and equals the
+    # trained parameters
+    del mt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    export = out_dir / "hf_export"
+    ecfg = load_config([f"model.whisper_model={export}",
+                               "model.ctc_weight=0.3"])
+    container = WhisperContainer(ecfg, dev)
+    sd = normalize_state_dict(load_file(str(export / "model.safetensors")))
+    loaded = dict(container.model.named_parameters())
+    bad = [n for n, v in snaps["end"].items()
+           if not torch.equal(loaded[n].detach().cpu(), v)]
+    log(f"[train] hf_export: {len(sd)} tensors, loaded strictly into the "
+        f"port's container, {len(loaded) - len(bad)} of {len(loaded)} "
+        "parameters equal to the trained ones")
+    if bad:
+        raise AssertionError(f"hf_export differs from the trained model: "
+                             f"{bad[:5]}")
+    del container, snaps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_update": loop * 1e3 / updates,
+            "peak_gib": peak}
+
+
 def main() -> int:
     kind = phase_card()
     dev = torch.device("cuda", 0)
     phase_build()
     k_flash = phase_kernel(dev)
+    k_bwd = phase_flash_bwd(dev)
     k_anc = phase_ancestry(dev)
     k_psi = phase_psi(dev)
     phase_encoder(dev)
     greedy = phase_decode(dev)
     beam = phase_beam_decode(dev)
+    train = phase_train(dev)["launches"]
     csrc = "ts_asr_whisper_tpu_torch/kernels/csrc"
     replaces = {"flash_attn_fwd": "ts_asr_whisper_tpu/ops/attention.py:84",
+                "flash_attn_bwd": "ts_asr_whisper_tpu/ops/attention.py:178",
                 "ancestry_attn": "ts_asr_whisper_tpu/ops/beam_attention.py:110",
                 "psi_gather_dot": "ts_asr_whisper_tpu/ops/psi_gather.py:125"}
-    timing = {"flash_attn_fwd": k_flash, "ancestry_attn": k_anc,
-              "psi_gather_dot": k_psi}
+    timing = {"flash_attn_fwd": k_flash, "flash_attn_bwd": k_bwd,
+              "ancestry_attn": k_anc, "psi_gather_dot": k_psi}
     record = {"kernels": [{
         "name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
         "replaces": replaces[name],
-        "launches": greedy[name] + beam[name],
+        "launches": greedy[name] + beam[name] + train[name],
         "launches_by_path": {"dicow_v3_greedy": greedy[name],
-                             "dicow_v3_beam_joint": beam[name]},
+                             "dicow_v3_beam_joint": beam[name],
+                             "dicow_v3_train": train[name]},
         **timing[name]} for name in KERNELS]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

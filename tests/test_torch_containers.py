@@ -11,7 +11,6 @@ import torch
 
 import torch_parity_utils  # noqa: F401  (caps torch's threads)
 from ts_asr_whisper_tpu.config import load_config
-from ts_asr_whisper_tpu.data.tokenizer import ByteLevelTokenizer
 from ts_asr_whisper_tpu.models.containers import WhisperContainer as JaxContainer
 from ts_asr_whisper_tpu.models.convert import params_to_hf, save_safetensors
 from ts_asr_whisper_tpu_torch.models import containers as C
@@ -41,7 +40,9 @@ def test_config_and_tokenizer_match_the_jax_container(model_dir):
     tc = C.WhisperContainer(cfg, torch.device("cpu"), seed=0)
     jc = JaxContainer(cfg, seed=0)
     assert tc.model_config.__dict__ == jc.model_config.__dict__
-    assert isinstance(tc.tokenizer, ByteLevelTokenizer)
+    # the port's own copy of the byte-level tokenizer
+    assert isinstance(tc.tokenizer, C.ByteLevelTokenizer)
+    assert type(jc.tokenizer).__name__ == "ByteLevelTokenizer"
     assert tc.tokenizer.upper_cased_tokens == jc.tokenizer.upper_cased_tokens
     assert tc.attention_impl == "flash"
 

@@ -1,8 +1,10 @@
-"""The port's decode CLI (``python -m ts_asr_whisper_tpu_torch``) against the
-JAX CLI (``main.main``) on the verify recipe's synthetic corpus and the same
-safetensors weights: identical tcpWER hypothesis files and equal tcp_wer,
-for long-form greedy decode and for beam-5 joint-CTC decode
-(``+decode=dicow_v3_beam_joint``, with the CTC head in the weights)."""
+"""The port's CLI (``python -m ts_asr_whisper_tpu_torch --device cpu``)
+against the JAX CLI (``main.main``) on the verify recipe's synthetic corpus
+and the same safetensors weights: identical tcpWER hypothesis files and
+equal tcp_wer, for long-form greedy decode and for beam-5 joint-CTC decode
+(``+decode=dicow_v3_beam_joint``, with the CTC head in the weights); the
+same logged losses and a loadable HF export for the fine-tune; and no run
+at all without a GPU unless ``--device cpu`` asks for the CPU."""
 
 import json
 import subprocess
@@ -12,6 +14,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 import torch_parity_utils  # noqa: F401  (caps torch's threads)
 from ts_asr_whisper_tpu.config import load_config
@@ -101,7 +104,7 @@ def _check_cli(corpus, tmp_path, overrides):
     jax_out, port_out = tmp_path / "jax", tmp_path / "port"
     ref = jax_main.main(overrides(corpus, jax_out))
     proc = subprocess.run(
-        [sys.executable, "-m", "ts_asr_whisper_tpu_torch",
+        [sys.executable, "-m", "ts_asr_whisper_tpu_torch", "--device", "cpu",
          *overrides(corpus, port_out)],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "2",
@@ -126,3 +129,101 @@ def _check_cli(corpus, tmp_path, overrides):
     key = f"eval_{name}_tcp_wer"
     line = [ln for ln in proc.stderr.splitlines() if "final metrics" in ln][0]
     assert f"'{key}': {ref[key]}" in line
+
+
+def test_cli_refuses_to_run_without_a_gpu_unless_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CLI would run on it")
+    proc = subprocess.run(
+        [sys.executable, "-m", "ts_asr_whisper_tpu_torch",
+         "training.decode_only=true", f"training.output_dir={tmp_path}"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
+             "HOME": str(tmp_path)})
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr
+    assert not (tmp_path / "metrics.jsonl").exists()
+
+
+def _train_overrides(corpus, out_dir):
+    """The base config's fine-tune on the tiny model in fp32, augmentations
+    off: one preheat epoch of 2 micro-batches, then 1 base step."""
+    return [f"model.whisper_model={corpus['model']}",
+            f"data.train_cutsets=[{corpus['train']}]",
+            "data.dev_cutsets=[]", "data.eval_cutsets=[]",
+            "model.dtype=float32", "aug.stno_gaussian_noise_var=null",
+            "aug.stno_gaussian_noise_prob=0.0",
+            "aug.stno_segment_augment_prob=0.0", "aug.spec_aug_prob=0.0",
+            # an explicit micro-batch: the JAX CLI would divide
+            # overall_batch_size by the test's 8 virtual devices
+            "training.overall_batch_size=0",
+            "training.per_device_train_batch_size=2", "training.max_steps=3",
+            "training.warmup_steps=0", "training.eval_strategy=no",
+            "training.save_strategy=no", "training.logging_steps=1",
+            "training.dataloader_num_workers=1", "training.mesh_shape=[1]",
+            f"training.output_dir={out_dir}"]
+
+
+@pytest.fixture(scope="module")
+def train_corpus(tmp_path_factory):
+    """Two 30 s two-speaker recordings (4 training rows) and a tiny model
+    whose weights both CLIs load."""
+    tmp = tmp_path_factory.mktemp("torch_train")
+    train = write_corpus(tmp / "corpus", durations=(30.0, 30.0), seed=0)
+    model_dir = tmp / "model"
+    model_dir.mkdir()
+    (model_dir / "config.json").write_text(json.dumps(
+        {**MODEL, "d_model": 128, "encoder_ffn_dim": 256,
+         "decoder_ffn_dim": 256, "max_target_positions": 448}))
+    corpus = {"model": model_dir, "train": train}
+    jcfg = load_config(_train_overrides(corpus, tmp / "unused"), n_devices=1)
+    jc = WhisperContainer(jcfg, seed=7)
+    save_safetensors(params_to_hf(jax.tree.map(np.asarray, jc.params),
+                                  jc.model_config),
+                     str(model_dir / "model.safetensors"))
+    return corpus
+
+
+def test_port_train_cli_matches_jax_cli(train_corpus, tmp_path):
+    import main as jax_main
+    from safetensors.numpy import load_file
+
+    from ts_asr_whisper_tpu.models.convert import hf_to_params
+    from ts_asr_whisper_tpu_torch.models.convert import state_dict_from_jax
+
+    jax_out, port_out = tmp_path / "jax", tmp_path / "port"
+    jax_main.main(_train_overrides(train_corpus, jax_out))
+    proc = subprocess.run(
+        [sys.executable, "-m", "ts_asr_whisper_tpu_torch", "--device", "cpu",
+         *_train_overrides(train_corpus, port_out)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "2",
+             "PYTHONPATH": str(REPO), "HOME": str(tmp_path)})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "Unfreezing at step 2" in proc.stderr
+
+    jlog, plog = ([json.loads(line) for line in
+                   (out / "metrics.jsonl").read_text().splitlines()]
+                  for out in (jax_out, port_out))
+    assert [r["step"] for r in plog] == [r["step"] for r in jlog] == [1, 2, 3]
+    for r, o in zip(jlog, plog):
+        for k in ("loss", "dec_loss", "ctc_loss"):
+            np.testing.assert_allclose(o[k], r[k], rtol=1e-4, err_msg=k)
+
+    # the port's export loads through the JAX package's hf_to_params, and
+    # what it loads is the port's parameters, tensor for tensor
+    export = port_out / "hf_export"
+    sd = load_file(str(export / "model.safetensors"))
+    cfg = json.loads((export / "config.json").read_text())
+    jcfg = load_config(_train_overrides(train_corpus, tmp_path / "x"),
+                       n_devices=1)
+    mc = WhisperContainer(jcfg, seed=0).model_config
+    assert {k: cfg[k] for k in MODEL} == {k: getattr(mc, k) for k in MODEL}
+    loaded = hf_to_params(sd, mc)
+    back = state_dict_from_jax(jax.tree.map(np.asarray, loaded), mc)
+    assert set(back) == set(sd)
+    for k, v in back.items():
+        np.testing.assert_array_equal(v.numpy(), sd[k], err_msg=k)
+    assert (export / "generation_config.json").exists()
+    assert set(load_file(str(jax_out / "hf_export" / "model.safetensors"))) \
+        == set(sd)

@@ -1,6 +1,6 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card: encoder flash attention, beam ancestry attention and the candidate
-CTC-psi gather + dot. Skips without a GPU; run there with
+card: encoder flash attention forward and backward, beam ancestry attention
+and the candidate CTC-psi gather + dot. Skips without a GPU; run there with
 ``python -m pytest tests/test_torch_kernel_cuda.py -m cuda``."""
 
 import numpy as np
@@ -64,6 +64,53 @@ def test_sdpa_dispatches_encoder_attention_to_the_kernel(cuda):
     assert A.launch_counts["flash_attn_fwd"] == before + 1
     ref = A.flash_mha_reference(q, k, v)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [256, 257, 300, 1499, 1500])
+def test_backward_kernel_matches_plain(cuda, dtype, t):
+    q, k, v = _qkv((2, 3, t, 64), dtype, cuda, seed=t)
+    g = _qkv((2, 3, t, 64), dtype, cuda, seed=t + 1)[1]
+    before = launch_counts["flash_attn_bwd"]
+    out = A.flash_mha_bwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attn_bwd"] == before + 1
+    ref = A.flash_mha_bwd_reference(q, k, v, g)
+    for o, r in zip(out, ref):
+        assert o.dtype == dtype
+        if dtype == torch.float32:  # as tests/test_attention.py:63
+            torch.testing.assert_close(o, r, atol=2e-4, rtol=2e-4)
+        else:  # the bf16 rounding of ds and p dominates
+            rel = (o.float() - r.float()).norm() / r.float().norm()
+            assert rel <= 1e-2
+
+
+def test_backward_kernel_rejects_other_head_dims(cuda):
+    q, k, v = _qkv((1, 2, 300, 32), torch.bfloat16, cuda)
+    before = launch_counts["flash_attn_bwd"]
+    with pytest.raises(ValueError, match="head dim"):
+        A.flash_mha_bwd(q, k, v, q)
+    half = [x.half() for x in _qkv((1, 2, 300, 64), torch.float32, cuda)]
+    with pytest.raises(ValueError, match="dtype"):
+        A.flash_mha_bwd(*half, half[0])
+    assert launch_counts["flash_attn_bwd"] == before
+
+
+def test_flash_mha_autograd_runs_both_kernels(cuda):
+    """FlashMHA through sdpa: the forward and backward kernels, one launch
+    each, gradients as autograd through the plain forward (fp32)."""
+    q, k, v = _qkv((2, 2, 300, 64), torch.float32, cuda, seed=9)
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(0))
+    before = dict(launch_counts)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    (A.sdpa(*xs, flash=True) * w).sum().backward()
+    assert launch_counts["flash_attn_fwd"] == before["flash_attn_fwd"] + 1
+    assert launch_counts["flash_attn_bwd"] == before["flash_attn_bwd"] + 1
+    refs = [x.clone().requires_grad_() for x in (q, k, v)]
+    (A.flash_mha_reference(*refs) * w).sum().backward()
+    for x, r in zip(xs, refs):
+        torch.testing.assert_close(x.grad, r.grad, atol=2e-4, rtol=2e-4)
 
 
 def _ancestry_inputs(bb, n, h, t, dtype, device, seed=0):

@@ -1,13 +1,14 @@
-"""Eval-dataset path of the port: long-form datasets over cut manifests.
+"""Datasets of the port over cut manifests: the (cut x speaker) training
+dataset and the long-form eval datasets.
 
-A jax-free copy of ts_asr_whisper_tpu/data/datasets.py:29-30, 39-40, 43-186,
-404-578 (``round_nearest``, ``get_cut_recording_id``, the
-``TS_ASR_DatasetSuperclass`` methods that ``LhotseLongFormDataset`` uses,
-``TS_ASR_Dataset``, ``LhotseLongFormDataset``, ``load_cutsets``,
-``build_datasets``). That module imports the jax log-mel module at the top;
-only the imports differ here, and the featurizer is the port's numpy copy.
-The SE-DiCoW enrollment selection (datasets.py:188-373) is not copied: the
-port refuses enrollments.
+A copy of ts_asr_whisper_tpu/data/datasets.py:29-30, 39-40, 43-186,
+376-578 (``round_nearest``, ``get_cut_recording_id``, the
+``TS_ASR_DatasetSuperclass`` methods, ``TS_ASR_Dataset``,
+``LhotseLongFormDataset``, ``load_cutsets``, ``build_datasets``). That
+module imports the jax log-mel module at the top; only the imports differ
+here, and the featurizer is the port's numpy copy. The SE-DiCoW enrollment
+selection (datasets.py:188-373) and the enrollment branch of
+``cut_to_sample`` (:387-391) are not copied: the port refuses enrollments.
 """
 
 from __future__ import annotations
@@ -19,11 +20,10 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ts_asr_whisper_tpu.data.manifests import Cut, CutSet, MonoCut, load_manifest
-from ts_asr_whisper_tpu.data.stno import create_stno_mask, downsample_speaker_mask
-from ts_asr_whisper_tpu.utils.logging_def import get_logger
-
+from ..utils.logging_def import get_logger
 from .features import extract_features
+from .manifests import Cut, CutSet, MonoCut, load_manifest
+from .stno import create_stno_mask, downsample_speaker_mask
 
 logger = get_logger(__name__)
 
@@ -99,7 +99,7 @@ class TS_ASR_DatasetSuperclass:
         self.musan_augment_prob = musan_augment_prob
         self.musan_augment = None
         if musan_augment_prob > 0.0 and musan_root:
-            from ts_asr_whisper_tpu.data.augmentations import RandomBackgroundNoise
+            from .augmentations import RandomBackgroundNoise
 
             self.musan_augment = RandomBackgroundNoise(16000, musan_root)
         self.prepare_cuts()
@@ -180,6 +180,29 @@ class TS_ASR_DatasetSuperclass:
                 and np.random.rand() < self.musan_augment_prob):
             samples = self.musan_augment(samples)
         return extract_features(samples, self.num_mel_bins)
+
+    # -- sample assembly ---------------------------------------------------
+    def cut_to_sample(self, cut: Cut, speaker_id: str,
+                      is_nested: bool = False) -> dict:
+        stno_mask = self.get_stno_mask(cut, speaker_id)
+        features, att_mask = self.get_features(cut)
+        out = {
+            "input_features": features,
+            "stno_mask": stno_mask,
+            "attention_mask": att_mask,
+            "transcript": self.build_transcript(cut, speaker_id),
+            "is_long_form": False,
+        }
+        lang = (cut.custom or {}).get("lang") if getattr(cut, "custom", None) \
+            else None
+        if lang:
+            out["language"] = lang
+        elif self.global_lang_id:
+            out["language"] = self.global_lang_id
+        else:
+            raise ValueError(
+                "Dataset provides no lang ids; set global_lang_id.")
+        return out
 
 
 class TS_ASR_Dataset(TS_ASR_DatasetSuperclass):

@@ -13,7 +13,7 @@ from typing import Sequence
 
 import numpy as np
 
-from ts_asr_whisper_tpu.data.audio import save_wav
+from .audio import save_wav
 
 SAMPLE_RATE = 16000
 WORDS = ("good morning to everyone here thanks for coming today folks we "

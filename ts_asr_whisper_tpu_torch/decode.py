@@ -1,17 +1,19 @@
-"""Decode-only orchestration of the port: model container -> eval datasets
--> long-form greedy or beam joint-CTC decode -> SegLST -> tcpWER, single
-process, one device.
+"""Decode orchestration of the port: model container -> eval datasets ->
+long-form greedy or beam joint-CTC decode -> SegLST -> tcpWER, single
+process, one device. The training entry point (train.py) evaluates through
+the same runner.
 
 Counterpart of the decode part of ts_asr_whisper_tpu/train.py
 (``make_generation_config`` :34-78, ``ModelTrainer._build_eval``,
 ``evaluate_dataset``, ``do_eval`` and the ``decode_only`` branch of
-``train``). Training, pre-training, SE-DiCoW enrollments, weight re-init
-and multi-device decode are not ported yet and raise
+``train``). Pre-training, SE-DiCoW enrollments, LoRA, multi-device runs and
+``auto_find_batch_size`` are not ported yet and raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import os
@@ -21,18 +23,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ts_asr_whisper_tpu.config import Cfg, load_config
-from ts_asr_whisper_tpu.data.collators import DataCollator
-from ts_asr_whisper_tpu.decoding.generation_config import GenerationConfig
-from ts_asr_whisper_tpu.eval import native
-from ts_asr_whisper_tpu.training.dataloader import eval_batches
-from ts_asr_whisper_tpu.txt_norm import get_text_norm
-from ts_asr_whisper_tpu.utils.logging_def import get_logger
-
+from .config import Cfg
+from .data.collators import DataCollator
 from .data.datasets import build_datasets
+from .decoding.generation_config import GenerationConfig
 from .decoding.longform import longform_generate
+from .eval import native
 from .eval.metrics import compute_longform_metrics
 from .models.containers import WhisperContainer
+from .training.dataloader import eval_batches
+from .txt_norm import get_text_norm
+from .utils.logging_def import get_logger
 
 logger = get_logger(__name__)
 
@@ -78,27 +79,25 @@ def make_generation_config(container: WhisperContainer, cfg: Cfg,
     return GenerationConfig(**kw)
 
 
-def load_decode_config(overrides) -> Cfg:
-    """The JAX CLI's config composition (base.yaml + ``+group=name`` +
-    dotted overrides) for one device; the explicit device count keeps
-    config.py from asking jax for one."""
-    return load_config(list(overrides), n_devices=1)
-
-
 def check_scope(cfg: Cfg) -> None:
-    """Refuse the parts of a config that this slice of the port lacks."""
+    """Refuse the parts of a config that the port lacks."""
     t = cfg.training
     if t.pretrain_encoder:
         raise NotImplementedError("encoder pre-training is not ported yet")
-    if not t.decode_only:
-        raise NotImplementedError("training is not ported yet (set "
-                                  "training.decode_only=true)")
     if cfg.data.use_enrollments or cfg.model.use_enrollments:
         raise NotImplementedError("SE-DiCoW enrollments are not ported yet")
-    if cfg.model.reinit_encoder_from or cfg.model.reinit_from:
-        raise NotImplementedError("model.reinit_* loaders are not ported yet")
     if t.mesh_shape and math.prod(t.mesh_shape) > 1:
-        raise NotImplementedError("multi-device decode is not ported yet")
+        raise NotImplementedError("multi-device runs are not ported yet")
+    if not t.decode_only:
+        if t.use_lora:
+            raise NotImplementedError("LoRA fine-tuning is not ported yet")
+        if t.auto_find_batch_size:
+            raise NotImplementedError(
+                "training.auto_find_batch_size is not ported yet")
+        if t.gradient_checkpointing and t.remat_policy != "full":
+            raise NotImplementedError(
+                f"training.remat_policy={t.remat_policy!r} is not ported "
+                "yet (use 'full')")
 
 
 def scoring_backend() -> str:
@@ -119,15 +118,11 @@ def case_fold_map(tok) -> Optional[np.ndarray]:
     ])
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
 class DecodeRunner:
-    def __init__(self, cfg: Cfg, device: Optional[torch.device] = None):
+    def __init__(self, cfg: Cfg, device: torch.device):
         check_scope(cfg)
         self.cfg = cfg
-        self.device = torch.device(device or default_device())
+        self.device = torch.device(device)
         self.container = WhisperContainer(cfg, self.device,
                                           seed=cfg.training.seed)
         self.eval_text_norm = get_text_norm(cfg.data.eval_text_norm)
@@ -155,9 +150,10 @@ class DecodeRunner:
             self.container.model_config.num_mel_bins,
             diar_cutset_paths=diar_paths if self.cfg.data.use_diar else None)
 
-    def evaluate_dataset(self, dataset, output_dir: str) -> Dict[str, float]:
+    def evaluate_dataset(self, dataset, output_dir: str,
+                         metrics_list=None, model=None) -> Dict[str, float]:
         tok = self.container.tokenizer
-        model = self.container.model
+        model = model or self.container.model
         upper_to_lower = case_fold_map(tok)
         preds = []  # (batch_index, sequences, label keys) per decoded batch
         bs = self.cfg.training.per_device_eval_batch_size
@@ -186,28 +182,38 @@ class DecodeRunner:
             [s for _, ps, _ in preds for s in ps],
             [k for _, _, ks in preds for k in ks],
             dataset, tok, output_dir, self.eval_text_norm,
-            metrics_list=self.cfg.training.eval_metrics_list,
+            metrics_list=metrics_list or self.cfg.training.eval_metrics_list,
             save_visualizations=self.cfg.training.save_visualizations)
 
-    def do_eval(self, datasets: Dict[str, object]) -> Dict[str, float]:
-        """Decode and score each dataset as the JAX package's final test
-        evaluation does (train.py:276-311 with step 0, split 'test')."""
+    def do_eval(self, datasets: Dict[str, object], step: int = 0,
+                split: str = "test") -> Dict[str, float]:
+        """Decode and score each dataset as the JAX package's do_eval
+        (train.py:276-311): dev evals during training score
+        ``train_metrics_list``, the final test eval ``eval_metrics_list``."""
         t = self.cfg.training
-        # bf16 eval (train.py:283-291): the weights themselves go to bf16;
-        # the port only decodes, so they are cast in place
+        metrics_list = (t.train_metrics_list if split == "dev"
+                        else t.eval_metrics_list)
+        model = self.container.model
+        # bf16 eval (train.py:283-291): a decode-only run casts its weights
+        # in place; a training run decodes a bf16 copy and keeps its fp32
+        # parameters
         if t.bf16_full_eval and self.container.model_config.dtype == \
                 "bfloat16":
-            self.container.model.to(torch.bfloat16)
+            if t.decode_only:
+                model.to(torch.bfloat16)
+            else:
+                model = copy.deepcopy(model).to(torch.bfloat16)
         metrics: Dict[str, float] = {}
         out_root = Path(t.output_dir)
         for name, ds in datasets.items():
             res = self.evaluate_dataset(
-                ds, str(out_root / f"test_{name}" / "step_0"))
+                ds, str(out_root / f"{split}_{name}" / f"step_{step}"),
+                metrics_list=metrics_list, model=model)
             metrics.update({f"eval_{name}_{k}": v for k, v in res.items()})
-            logger.info("eval %s@0: %s", name,
+            logger.info("eval %s@%d: %s", name, step,
                         {k: round(v, 4) for k, v in res.items()})
         if t.compute_combined_metrics or len(datasets) > 1:
-            for m in t.eval_metrics_list:
+            for m in metrics_list:
                 prefix = m.split("_", 1)[0]
                 errors = sum(v for k, v in metrics.items()
                              if k.endswith(f"_{prefix}_errors"))
@@ -229,9 +235,13 @@ class DecodeRunner:
         return self.do_eval(self.eval_datasets)
 
 
-def main(cfg: Cfg, device: Optional[torch.device] = None) -> Dict[str, float]:
-    # fp32 stays fp32 on the card: cuDNN would otherwise run the fp32 conv
-    # stem in TF32
+def no_tf32() -> None:
+    """fp32 stays fp32 on the card: cuDNN would otherwise run the fp32 conv
+    stem in TF32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def main(cfg: Cfg, device: torch.device) -> Dict[str, float]:
+    no_tf32()
     return DecodeRunner(cfg, device).run()

@@ -20,10 +20,9 @@ from typing import NamedTuple
 
 import torch
 
-from ts_asr_whisper_tpu.decoding.generation_config import GenerationConfig
-
 from ..models.dicow import DiCoW
 from ..ops.topk import topk_large
+from .generation_config import GenerationConfig
 from .logits_process import make_logits_processor
 
 NEG = -1e9

@@ -14,9 +14,8 @@ from typing import NamedTuple
 
 import torch
 
-from ts_asr_whisper_tpu.decoding.generation_config import GenerationConfig
-
 from ..models.dicow import DiCoW
+from .generation_config import GenerationConfig
 from .logits_process import make_logits_processor
 
 

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from ts_asr_whisper_tpu.decoding.generation_config import GenerationConfig
+from .generation_config import GenerationConfig
 
 NEG_INF = torch.finfo(torch.float32).min
 

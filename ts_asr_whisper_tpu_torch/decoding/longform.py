@@ -21,11 +21,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ts_asr_whisper_tpu.decoding.generation_config import GenerationConfig
-
 from ..models.dicow import DiCoW
 from .beam import beam_search
 from .ctc_rescorer import CTCRescorer, init_ctc_state
+from .generation_config import GenerationConfig
 from .greedy import greedy_decode
 
 # ---------------------------------------------------------------------------

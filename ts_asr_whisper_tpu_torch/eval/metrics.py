@@ -6,8 +6,8 @@ A jax-free copy of ts_asr_whisper_tpu/eval/metrics.py:33-179
 ts_asr_whisper_tpu/eval/seglst.py:102-134 (``process_session``). The
 originals reach jax through ``data/datasets.py``; here only the imports
 differ, and ``get_cut_recording_id`` / ``LhotseLongFormDataset`` come from
-the port's dataset copy. Fold back once the JAX host stack is cut loose from
-jax.
+the port's dataset copy. The port keeps its own copies: it imports nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -20,17 +20,16 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ts_asr_whisper_tpu.eval.postprocess import truncate_at_repeating_ngram
-from ts_asr_whisper_tpu.eval.seglst import (
+from ..data.datasets import get_cut_recording_id
+from ..utils.logging_def import get_logger
+from .postprocess import truncate_at_repeating_ngram
+from .seglst import (
     SegLST,
     normalize_segment,
     parse_string_to_objects,
     supervisions_to_seglst,
 )
-from ts_asr_whisper_tpu.eval.wer import aggregate_wer_metrics, calc_wer
-from ts_asr_whisper_tpu.utils.logging_def import get_logger
-
-from ..data.datasets import get_cut_recording_id
+from .wer import aggregate_wer_metrics, calc_wer
 
 logger = get_logger(__name__)
 

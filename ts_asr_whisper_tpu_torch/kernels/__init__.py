@@ -33,8 +33,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel name -> number of launches; each wrapper adds one where it launches
 # its kernel, and nowhere else
-launch_counts: Dict[str, int] = {"flash_attn_fwd": 0, "ancestry_attn": 0,
-                                  "psi_gather_dot": 0}
+launch_counts: Dict[str, int] = {"flash_attn_fwd": 0, "flash_attn_bwd": 0,
+                                  "ancestry_attn": 0, "psi_gather_dot": 0}
 # name -> {"seconds": build time (0.0 when reused), "log": nvcc output}
 build_info: Dict[str, dict] = {}
 
@@ -121,6 +121,10 @@ def _bind(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
 
 def flash_attn_fwd_lib() -> ctypes.CDLL:
     return _bind("flash_attn_fwd", 4, 5)
+
+
+def flash_attn_bwd_lib() -> ctypes.CDLL:
+    return _bind("flash_attn_bwd", 8, 5)
 
 
 def ancestry_attn_lib() -> ctypes.CDLL:

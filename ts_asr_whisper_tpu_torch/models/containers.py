@@ -6,7 +6,8 @@ architecture comes from the model directory's ``config.json`` or from a size
 name; weights are a seeded random init (``torch.Generator``) with the
 distributions of the JAX package's ``init_dicow``, replaced by a strict load
 of the directory's ``*.safetensors`` when there are any. Nothing is fetched
-from the network.
+from the network. ``reinit_encoder_from`` and ``reinit_from`` are the JAX
+container's weight re-init loaders (containers.py:122-137).
 """
 
 from __future__ import annotations
@@ -16,15 +17,14 @@ from pathlib import Path
 
 import torch
 
-from ts_asr_whisper_tpu.config import Cfg
-from ts_asr_whisper_tpu.data.tokenizer import (
+from ..config import Cfg
+from ..data.tokenizer import (
     ByteLevelTokenizer,
     create_lower_uppercase_mapping,
     load_tokenizer,
 )
-from ts_asr_whisper_tpu.utils.logging_def import get_logger
-
 from ..ops.attention import resolve_attention_impl
+from ..utils.logging_def import get_logger
 from .config import DiCoWConfig, make_config
 from .convert import load_safetensors_dir, normalize_state_dict
 from .dicow import build_dicow
@@ -110,3 +110,37 @@ class WhisperContainer:
             logger.info("Loading weights from %s", local_dir)
             sd = normalize_state_dict(load_safetensors_dir(str(local_dir)))
             self.model.load_state_dict(sd, strict=True)
+
+    # -- reference loaders (train.py:102-125) -----------------------------
+    def reinit_encoder_from(self, path: str) -> None:
+        """Encoder weights from a safetensors file or directory, FDDT keys
+        filtered out. A dict without decoder keys is encoder-only: its keys
+        may lack the ``model.`` and ``encoder.`` prefixes."""
+        sd = load_safetensors_dir(path)
+        sd = {k: v for k, v in sd.items() if "fddt" not in k.lower()}
+        if any(k.startswith(("decoder.", "model.decoder.")) for k in sd):
+            sd = normalize_state_dict(sd)
+        else:
+            clean = {}
+            for k, v in sd.items():
+                k = k.removeprefix("model.")
+                if not k.startswith("encoder."):
+                    k = "encoder." + k
+                clean["model." + k] = v
+            sd = clean
+        self._load_partial(sd, path)
+
+    def reinit_from(self, path: str) -> None:
+        self._load_partial(normalize_state_dict(load_safetensors_dir(path)),
+                           path)
+
+    def _load_partial(self, sd, path: str) -> None:
+        """Overlay the tensors of ``sd`` onto the model; parameters it lacks
+        keep their init (freshly initialized FDDTs), keys the model lacks
+        are ignored."""
+        own = self.model.state_dict()
+        hits = {k: v for k, v in sd.items() if k in own}
+        if not hits:
+            raise ValueError(f"{path}: no tensor matches the model's keys")
+        self.model.load_state_dict(hits, strict=False)
+        logger.info("Re-initialized %d tensors from %s", len(hits), path)

@@ -1,9 +1,10 @@
 """DiCoW model of the port: the STNO-conditioned Whisper encoder, the CTC
 head and the full encoder-decoder with HF parameter names.
 
-Counterpart of ts_asr_whisper_tpu/models/dicow.py:104-212 and 246-293
+Counterpart of ts_asr_whisper_tpu/models/dicow.py:104-293
 (``dicow_encoder_forward`` without the SE-DiCoW SCB streams,
-``encoder_ctc_logits``, ``init_dicow``).
+``encoder_ctc_logits``, the teacher-forced ``dicow_forward``,
+``init_dicow``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import DiCoWConfig
 from .fddt import FDDT
@@ -42,6 +44,9 @@ class DiCoWEncoder(nn.Module):
         d = cfg.d_model
         self.cfg = cfg
         self.flash = flash
+        # recompute each layer (its FDDT included) in the backward pass
+        # (training.gradient_checkpointing, remat policy 'full')
+        self.remat = False
         self.conv1 = nn.Conv1d(cfg.num_mel_bins, d, 3, padding=1)
         self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
         self.embed_positions = nn.Embedding(cfg.max_source_positions, d)
@@ -95,12 +100,21 @@ class DiCoWEncoder(nn.Module):
         if cfg.use_fddt and cfg.use_pre_pos_fddt:
             x = self.initial_fddt(x, stno_mask)
         x = x + self.embed_positions.weight.to(x.dtype)[: x.shape[-2]]
-        nf = cfg.num_fddts
-        for i, layer in enumerate(self.layers):
-            if cfg.use_fddt and i < nf:
-                x = self.fddts[i](x, stno_mask)
-            x = layer(x, dt, flash=self.flash)
+        for i in range(len(self.layers)):
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(self._layer, i, x, stno_mask,
+                               use_reentrant=False)
+            else:
+                x = self._layer(i, x, stno_mask)
         return self.layer_norm(x)
+
+    def _layer(self, i: int, x: torch.Tensor,
+               stno_mask: torch.Tensor) -> torch.Tensor:
+        """Layer ``i`` with its FDDT (dicow.py:151-157)."""
+        cfg = self.cfg
+        if cfg.use_fddt and i < cfg.num_fddts:
+            x = self.fddts[i](x, stno_mask)
+        return self.layers[i](x, cfg.compute_dtype, flash=self.flash)
 
     def ctc_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """CTC head over the encoder hidden states (dicow.py:196-212): extra
@@ -143,6 +157,26 @@ class DiCoW(nn.Module):
     @property
     def encoder(self) -> DiCoWEncoder:
         return self.model.encoder
+
+    def forward(self, input_features: torch.Tensor, stno_mask: torch.Tensor,
+                decoder_input_ids: torch.Tensor):
+        """Teacher-forced forward (dicow.py:220-238): (B, n_mels, 3000)
+        features, (B, 4, 1500) STNO, (B, T) decoder input ids -> (decoder
+        logits fp32 (B, T, V), encoder last hidden (B, 1500, D))."""
+        enc = self.encoder(input_features, stno_mask)
+        hidden = self.decoder(decoder_input_ids, enc)
+        return self.decoder.lm_logits(hidden), enc
+
+    def set_gradient_checkpointing(self, enabled: bool,
+                                   policy: str = "full") -> None:
+        """``training.gradient_checkpointing``: recompute every encoder
+        layer (with its FDDT) and every decoder layer in the backward pass
+        (``torch.utils.checkpoint``, non-reentrant). Only the JAX package's
+        'full' policy is ported."""
+        if enabled and policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={policy!r} is not ported yet (use 'full')")
+        self.encoder.remat = self.decoder.remat = enabled
 
     @property
     def decoder(self) -> WhisperDecoder:

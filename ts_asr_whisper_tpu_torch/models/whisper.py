@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import plain_sdpa, sdpa
 from ..ops.beam_attention import ancestry_attention
@@ -167,6 +168,7 @@ class WhisperDecoder(nn.Module):
             DecoderLayer(d, cfg.decoder_attention_heads, cfg.decoder_ffn_dim)
             for _ in range(cfg.decoder_layers))
         self.layer_norm = LayerNorm(d)
+        self.remat = False  # see DiCoW.set_gradient_checkpointing
 
     def embed(self, input_ids: torch.Tensor, pos0: int) -> torch.Tensor:
         dt = self.cfg.compute_dtype
@@ -184,7 +186,10 @@ class WhisperDecoder(nn.Module):
         mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
         enc = encoder_hidden.to(dt)
         for layer in self.layers:
-            x = layer(x, enc, dt, self_mask=mask)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, enc, dt, mask, use_reentrant=False)
+            else:
+                x = layer(x, enc, dt, self_mask=mask)
         return self.layer_norm(x)
 
     def lm_logits(self, hidden: torch.Tensor,

@@ -1,0 +1,187 @@
+"""Fine-tune orchestration of the port, one device: container (+ optional
+weight re-init) -> train dataset and collator -> Trainer with long-form dev
+evals, checkpoint and best-model callbacks -> HF export -> final test eval.
+
+Counterpart of the train branch of ts_asr_whisper_tpu/train.py
+(``ModelTrainer.__init__`` :82-142, ``_fit`` :314-399, ``train`` :401-490)
+on a mesh of one. Decoding and scoring go through ``decode.DecodeRunner``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import tarfile
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from .config import Cfg
+from .data.collators import DataCollator
+from .data.datasets import TS_ASR_Dataset, load_cutsets
+from .decode import DecodeRunner, no_tf32
+from .models.dicow import DiCoW
+from .training.checkpoints import (export_hf_checkpoint, restore_checkpoint,
+                                   save_checkpoint)
+from .training.dataloader import DataLoader
+from .training.trainer import Trainer, TrainState
+from .txt_norm import get_text_norm
+from .utils.logging_def import get_logger
+
+logger = get_logger(__name__)
+
+
+class ModelTrainer:
+    def __init__(self, cfg: Cfg, device: torch.device):
+        self.cfg = cfg
+        self.runner = DecodeRunner(cfg, device)
+        self.container = self.runner.container
+        if cfg.model.reinit_encoder_from:
+            self.container.reinit_encoder_from(cfg.model.reinit_encoder_from)
+        elif cfg.model.reinit_from:
+            self.container.reinit_from(cfg.model.reinit_from)
+
+        data, aug = cfg.data, cfg.aug
+        self.train_text_norm = get_text_norm(data.train_text_norm)
+        self.train_dataset = None
+        if data.train_cutsets and not cfg.training.decode_only:
+            self.train_dataset = TS_ASR_Dataset(
+                load_cutsets(list(data.train_cutsets), False),
+                text_norm=self.train_text_norm,
+                use_timestamps=data.use_timestamps,
+                dataset_weights=data.dataset_weights,
+                num_mel_bins=self.container.model_config.num_mel_bins,
+                global_lang_id=data.global_lang_id,
+                musan_augment_prob=aug.musan_augment_prob,
+                musan_root=aug.musan_root)
+        self.dev_datasets = self.runner._build_eval(data.dev_cutsets,
+                                                    data.dev_diar_cutsets)
+        self.eval_datasets = self.runner.eval_datasets
+        self.collator = DataCollator(
+            tokenizer=self.container.tokenizer,
+            bos_token_id=self.container.model_config.bos_token_id,
+            max_length=cfg.training.generation_max_length,
+            stno_gaussian_noise_var=aug.stno_gaussian_noise_var,
+            stno_gaussian_noise_prob=aug.stno_gaussian_noise_prob,
+            stno_segment_augment_prob=aug.stno_segment_augment_prob,
+            stno_segment_change_prob=aug.stno_segment_change_prob,
+            stno_min_segment_length=aug.stno_min_segment_length,
+            stno_max_segment_length=aug.stno_max_segment_length,
+            spec_aug_prob=aug.spec_aug_prob if aug.do_augment
+            or aug.spec_aug_prob else 0.0)
+        self.gen_cfg = self.runner.gen_cfg
+
+    @property
+    def model(self) -> DiCoW:
+        return self.container.model
+
+    def _store_run_artifacts(self) -> None:
+        """training.store_src: the composed config and a snapshot of the
+        package's sources next to the run."""
+        import yaml
+
+        out = Path(self.cfg.training.output_dir)
+        with open(out / "config.yaml", "w") as f:
+            yaml.safe_dump(dataclasses.asdict(self.cfg), f,
+                           default_flow_style=False)
+        pkg_root = Path(__file__).resolve().parent
+        with tarfile.open(out / "src.tar.gz", "w:gz") as tar:
+            for py in sorted(pkg_root.rglob("*.py")):
+                tar.add(py, arcname=str(py.relative_to(pkg_root.parent)))
+        logger.info("store_src: wrote config.yaml + src.tar.gz to %s", out)
+
+    def _fit(self, num_prefix: int, start_step: int, eval_fn, checkpoint_fn,
+             save_best_fn, load_best_fn) -> TrainState:
+        t = self.cfg.training
+        global_bs = t.per_device_train_batch_size  # a mesh of one device
+        spe = len(self.train_dataset) // global_bs or None
+        if t.max_steps <= 0:
+            # HF convention: train by epochs; derive the step budget so the
+            # lr schedule and the loop agree
+            t.max_steps = (spe or 1) * t.num_train_epochs
+            logger.info("max_steps<=0: training %d epochs = %d steps",
+                        t.num_train_epochs, t.max_steps)
+        trainer = Trainer(self.cfg, self.model, num_prefix_tokens=num_prefix,
+                          eval_fn=eval_fn if self.dev_datasets else None,
+                          checkpoint_fn=checkpoint_fn,
+                          save_best_fn=save_best_fn,
+                          load_best_fn=load_best_fn,
+                          start_step=start_step, steps_per_epoch=spe)
+        loader = DataLoader(
+            self.train_dataset, self.collator, batch_size=global_bs,
+            seed=t.seed, num_workers=t.dataloader_num_workers,
+            prefetch_factor=t.dataloader_prefetch_factor,
+            worker_type=t.dataloader_worker_type,
+            num_epochs=(None if t.max_steps and t.max_steps > 0
+                        else t.num_train_epochs))
+        return trainer.train(iter(loader))
+
+    def train(self) -> Dict[str, float]:
+        t = self.cfg.training
+        os.makedirs(t.output_dir, exist_ok=True)
+        if t.store_src:
+            self._store_run_artifacts()
+        if t.decode_only:
+            return self.runner.run()
+        if self.train_dataset is None or not len(self.train_dataset):
+            raise ValueError("training needs data.train_cutsets: none could "
+                             f"be loaded from {self.cfg.data.train_cutsets}")
+
+        num_prefix = len(self.container.tokenizer.prefix_tokens) - 1
+        # resume / restart: parameters restored; the optimizer state starts
+        # fresh at the restored step
+        start_step = 0
+        resume_path = t.resume_from_checkpoint or t.restart_from or None
+        if resume_path:
+            state, start_step = restore_checkpoint(str(resume_path))
+            self.model.load_state_dict(state["params"])
+            logger.info("Resumed params from %s at step %d", resume_path,
+                        start_step)
+
+        def eval_fn(model, step):
+            return self.runner.do_eval(self.dev_datasets, step, "dev")
+
+        def checkpoint_fn(model, step):
+            save_checkpoint(os.path.join(t.output_dir, "ckpt"),
+                            model.state_dict(), step=step,
+                            keep=t.save_total_limit)
+
+        best_dir = os.path.join(t.output_dir, "ckpt_best")
+
+        def save_best_fn(model, step):
+            save_checkpoint(best_dir, model.state_dict(), step=step, keep=1)
+
+        def load_best_fn(model):
+            state, _ = restore_checkpoint(best_dir)
+            model.load_state_dict(state["params"])
+
+        state = self._fit(num_prefix, start_step,
+                          eval_fn if t.predict_with_generate else None,
+                          checkpoint_fn, save_best_fn, load_best_fn)
+
+        g = self.gen_cfg
+        gen_json = {
+            "max_length": g.max_length,
+            "decoder_start_token_id": g.decoder_start_token_id,
+            "eos_token_id": g.eos_token_id,
+            "pad_token_id": g.pad_token_id,
+            "bos_token_id": g.bos_token_id,
+            "no_timestamps_token_id": g.no_timestamps_token_id,
+            "return_timestamps": g.return_timestamps,
+            "ctc_weight": g.ctc_weight,
+            "suppress_tokens": list(g.suppress_tokens),
+            "begin_suppress_tokens": None,
+        }
+        export_hf_checkpoint(self.model.state_dict(),
+                             self.container.model_config,
+                             os.path.join(t.output_dir, "hf_export"),
+                             generation_config=gen_json)
+        if self.eval_datasets and t.predict_with_generate:
+            return self.runner.do_eval(self.eval_datasets, state.step, "test")
+        return {}
+
+
+def main(cfg: Cfg, device: torch.device) -> Dict[str, float]:
+    no_tf32()
+    return ModelTrainer(cfg, device).train()

@@ -1,0 +1,207 @@
+"""Optimizer of the port: one global-norm clip, then AdamW in two learning-
+rate groups, and the FDDT-preheat freeze schedule.
+
+Counterpart of ts_asr_whisper_tpu/training/optim.py:34-122, written out as
+optax computes it so that the same gradients give the same parameters:
+
+- three labels per parameter: 'preheat' (under ``prefixes_to_preheat``,
+  lr * ``fddt_lr_multiplier``), 'base' (lr) and 'frozen'; with
+  ``preheat_only`` everything outside the preheat group is frozen. Names
+  are ``named_parameters()`` names brought to the JAX package's path form
+  by ``_normalize_prefix`` (``model.encoder.fddts.0.x`` ->
+  ``encoder/fddts/0/x``). A frozen parameter gets ``requires_grad_(False)``
+  and no optimizer state (optax's ``set_to_zero``);
+- ``optax.clip_by_global_norm``: when the global norm g of every trainable
+  gradient is not below ``max_grad_norm``, each gradient becomes
+  (grad / g) * max_grad_norm (``clip_grad_norm_`` would add 1e-6 to g);
+- ``optax.adamw``: scale_by_adam (first moment stored in ``adam_mu_dtype``),
+  add_decayed_weights, then -lr(count) from ``make_lr_schedule``; one
+  update count shared by both groups;
+- ``optax.MultiSteps`` for gradient accumulation: a running mean of the k
+  micro-batch gradients, and one inner update every k-th micro-batch.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..config import TrainingConfig
+from ..utils.observability import global_norm
+
+LABELS = ("preheat", "base")  # the labels that train
+
+
+def _normalize_prefix(prefix: str) -> str:
+    # accept both the 'encoder/fddts' and the 'model.encoder.fddts' forms
+    return prefix.removeprefix("model.").replace(".", "/")
+
+
+def path_matches(path: str, prefixes: Iterable[str]) -> bool:
+    return any(path.startswith(_normalize_prefix(p)) for p in prefixes)
+
+
+def path_contains(path: str, keywords: Iterable[str]) -> bool:
+    return any(k in path for k in keywords)
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    # optax.linear_schedule
+    def schedule(count: int) -> float:
+        frac = 1 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+    return schedule
+
+
+def make_lr_schedule(cfg: TrainingConfig, base_lr: Optional[float] = None
+                     ) -> Callable[[int], float]:
+    """Linear warmup over ``warmup_steps`` joined to a cosine, linear or
+    constant decay over the rest of ``max_steps`` (optax.join_schedules)."""
+    lr = base_lr if base_lr is not None else cfg.learning_rate
+    warmup = _linear(0.0, lr, max(cfg.warmup_steps, 1))
+    steps_after = max(cfg.max_steps - cfg.warmup_steps, 1)
+    if cfg.lr_scheduler_type == "cosine":
+        def decay(count: int) -> float:  # optax.cosine_decay_schedule
+            count = min(count, steps_after)
+            return lr * 0.5 * (1 + math.cos(math.pi * count / steps_after))
+    elif cfg.lr_scheduler_type == "constant":
+        def decay(count: int) -> float:
+            return lr
+    else:  # linear (HF default)
+        decay = _linear(lr, 0.0, steps_after)
+    boundary = cfg.warmup_steps
+
+    def schedule(count: int) -> float:
+        return warmup(count) if count < boundary else decay(count - boundary)
+    return schedule
+
+
+def param_label(path: str, prefixes_to_preheat: Sequence[str],
+                frozen_keywords: Sequence[str], preheat_only: bool) -> str:
+    if path_matches(path, prefixes_to_preheat):
+        return "preheat"
+    if preheat_only or path_contains(path, frozen_keywords):
+        return "frozen"
+    return "base"
+
+
+def param_labels(model: nn.Module, prefixes_to_preheat: Sequence[str],
+                 frozen_keywords: Sequence[str], preheat_only: bool
+                 ) -> Dict[str, str]:
+    """``named_parameters()`` name -> 'preheat' | 'base' | 'frozen'."""
+    return {name: param_label(_normalize_prefix(name), prefixes_to_preheat,
+                              frozen_keywords, preheat_only)
+            for name, _ in model.named_parameters()}
+
+
+def trainable_mask(model: nn.Module, prefixes_to_preheat: Sequence[str],
+                   frozen_keywords: Sequence[str], preheat_only: bool
+                   ) -> Dict[str, bool]:
+    """Which parameters receive gradients in this phase."""
+    return {name: label != "frozen" for name, label in param_labels(
+        model, prefixes_to_preheat, frozen_keywords, preheat_only).items()}
+
+
+class AdamW:
+    """clip_by_global_norm + optax.adamw per label, over the parameters of
+    ``groups`` (label -> list of parameters). ``step(grads)`` takes one
+    gradient per parameter, in the order of ``params``."""
+
+    def __init__(self, groups: Dict[str, List[nn.Parameter]],
+                 cfg: TrainingConfig, lr_multiplier: float):
+        self.cfg = cfg
+        self.groups = groups
+        self.params = [p for label in LABELS for p in groups.get(label, ())]
+        self.schedules = {
+            "preheat": make_lr_schedule(cfg, cfg.learning_rate
+                                        * lr_multiplier),
+            "base": make_lr_schedule(cfg, cfg.learning_rate)}
+        mu_dtype = getattr(torch, cfg.adam_mu_dtype) if cfg.adam_mu_dtype \
+            else None
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        cfg = self.cfg
+        b1, b2, eps, wd = (cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
+                           cfg.weight_decay)
+        g_norm = global_norm(grads)
+        clip = not bool(g_norm < cfg.max_grad_norm)
+        count_inc = self.count + 1
+        # optax computes the bias corrections in fp32
+        f32 = torch.float32
+        bc1 = float(1 - torch.tensor(b1, dtype=f32) ** count_inc)
+        bc2 = float(1 - torch.tensor(b2, dtype=f32) ** count_inc)
+        i = 0
+        for label in LABELS:
+            lr = float(torch.tensor(self.schedules[label](self.count),
+                                    dtype=f32))
+            for p in self.groups.get(label, ()):
+                g = grads[i].float()
+                if clip:
+                    g = (g / g_norm.to(g.device)) * cfg.max_grad_norm
+                mu = (1 - b1) * g + b1 * self.mu[i].float()
+                nu = (1 - b2) * g * g + b2 * self.nu[i]
+                upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+                upd = upd + wd * p
+                p.add_((-lr * upd).to(p.dtype))
+                self.mu[i] = mu.to(self.mu[i].dtype)
+                self.nu[i] = nu
+                i += 1
+        self.count = count_inc
+
+
+class MultiSteps:
+    """optax.MultiSteps: the running mean of k micro-batch gradients
+    (acc += (g - acc) / (n + 1)); the inner optimizer steps on every k-th
+    micro-batch and the mean starts again from zero."""
+
+    def __init__(self, inner: AdamW, k: int):
+        self.inner = inner
+        self.k = k
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p, dtype=torch.float32)
+                    for p in inner.params]
+
+    @property
+    def params(self) -> List[nn.Parameter]:
+        return self.inner.params
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        n = self.mini_step
+        for a, g in zip(self.acc, grads):
+            a.add_((g.float() - a) / (n + 1))
+        if n == self.k - 1:
+            self.inner.step(self.acc)
+            for a in self.acc:
+                a.zero_()
+        self.mini_step = (n + 1) % self.k
+
+
+def build_optimizer(model: nn.Module, cfg: TrainingConfig,
+                    prefixes_to_preheat: Sequence[str] = (),
+                    frozen_keywords: Sequence[str] = (),
+                    preheat_only: bool = False
+                    ) -> Tuple[object, Dict[str, str]]:
+    """(optimizer, labels): sets ``requires_grad`` from the labels, builds
+    AdamW over the trainable parameters, wrapped in MultiSteps when
+    ``gradient_accumulation_steps`` > 1."""
+    labels = param_labels(model, prefixes_to_preheat, frozen_keywords,
+                          preheat_only)
+    groups: Dict[str, List[nn.Parameter]] = {}
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] != "frozen")
+        if labels[name] != "frozen":
+            groups.setdefault(labels[name], []).append(p)
+    mult = cfg.fddt_lr_multiplier if cfg.use_custom_optimizer else 1.0
+    tx = AdamW(groups, cfg, mult)
+    if cfg.gradient_accumulation_steps > 1:
+        tx = MultiSteps(tx, cfg.gradient_accumulation_steps)
+    return tx, labels

@@ -1,0 +1,258 @@
+"""Trainer of the port: the fine-tune step on one device and the reference's
+training behaviours (two-phase FDDT preheat with a fresh optimizer at the
+unfreeze, gradient accumulation, eval-driven early stopping, checkpoint
+and best-model callbacks).
+
+Counterpart of ts_asr_whisper_tpu/training/trainer.py:36-324 without the
+mesh. ``state.step`` counts micro-batches as the JAX trainer's does (each
+call of its jitted step is one micro-batch under ``optax.MultiSteps``);
+the optimizer's own count, which the learning-rate schedule reads, counts
+updates. Frozen parameters have ``requires_grad`` off, so autograd neither
+computes nor stores their gradients (the JAX step's ``stop_gradient``).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..config import Cfg
+from ..models.config import DiCoWConfig
+from ..models.dicow import DiCoW
+from ..models.losses import dicow_loss
+from ..utils.logging_def import get_logger
+from ..utils.observability import (MetricsLogger, global_norm,
+                                   module_grad_norms, start_trace,
+                                   stop_trace)
+from .optim import build_optimizer
+
+logger = get_logger(__name__)
+
+BATCH_KEYS = ("input_features", "stno_mask", "labels", "upp_labels")
+PROFILE_STEPS = 12  # training.profile_dir traces the first dozen steps
+
+
+def shift_tokens_right(labels: torch.Tensor, pad_token_id: int,
+                       decoder_start_token_id: int) -> torch.Tensor:
+    """HF shift_tokens_right semantics (labels -100 -> pad)."""
+    shifted = torch.roll(labels, 1, dims=-1)
+    shifted[:, 0] = decoder_start_token_id
+    return torch.where(shifted == -100, pad_token_id, shifted)
+
+
+def to_device(batch: Dict[str, np.ndarray], device: torch.device
+              ) -> Dict[str, torch.Tensor]:
+    """The collator's numpy batch -> the tensors the step reads."""
+    return {k: torch.as_tensor(np.asarray(batch[k])).to(device)
+            for k in BATCH_KEYS if k in batch}
+
+
+def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
+            batch: Dict[str, torch.Tensor], num_prefix_tokens: int):
+    """Teacher-forced forward and the joint loss (trainer.py:59-82)."""
+    labels = batch["labels"].long()
+    dec_in = shift_tokens_right(labels, model_cfg.pad_token_id,
+                                model_cfg.decoder_start_token_id)
+    logits, enc_hidden = model(batch["input_features"], batch["stno_mask"],
+                               dec_in)
+    enc_logits = None
+    if model_cfg.ctc_weight > 0.0:
+        enc_logits = model.encoder.ctc_logits(enc_hidden)
+    upp = batch.get("upp_labels")
+    return dicow_loss(logits, enc_logits, labels,
+                      upp.long() if upp is not None else None, model_cfg,
+                      num_prefix_tokens=num_prefix_tokens)
+
+
+@dataclass
+class TrainState:
+    step: int = 0
+    phase: str = "base"  # "preheat" | "base"
+
+
+class Trainer:
+    """Training loop over an iterator of host batches; evaluation,
+    checkpointing and best-model saving are callbacks (wired by train.py).
+    The model's parameters are updated in place."""
+
+    def __init__(
+        self,
+        cfg: Cfg,
+        model: DiCoW,
+        num_prefix_tokens: int = 0,
+        eval_fn: Optional[Callable[[DiCoW, int], Dict[str, float]]] = None,
+        checkpoint_fn: Optional[Callable[[DiCoW, int], None]] = None,
+        start_step: int = 0,
+        steps_per_epoch: Optional[int] = None,
+        save_best_fn: Optional[Callable[[DiCoW, int], None]] = None,
+        load_best_fn: Optional[Callable[[DiCoW], None]] = None,
+    ):
+        t = cfg.training
+        if t.use_lora:
+            raise NotImplementedError("LoRA fine-tuning is not ported yet")
+        self.cfg = cfg
+        self.model = model
+        self.model_cfg = model.cfg
+        self.device = next(model.parameters()).device
+        self.eval_fn = eval_fn
+        self.checkpoint_fn = checkpoint_fn
+        self.num_prefix_tokens = num_prefix_tokens
+        self.steps_per_epoch = steps_per_epoch
+        self.save_best_fn = save_best_fn
+        self.load_best_fn = load_best_fn
+        self._best_saved = False
+
+        self.metrics_logger = MetricsLogger(
+            t.output_dir, run_name=t.run_name,
+            use_wandb=bool(t.report_to) and "wandb" in str(t.report_to),
+            project=cfg.wandb.project)
+        self._preheat_steps = t.use_fddt_only_n_steps if t.use_fddt else 0
+        self._preheat_epochs = t.use_fddt_only_n_epochs if t.use_fddt else 0
+        phase = ("preheat" if (self._preheat_steps > 0
+                               or self._preheat_epochs > 0) else "base")
+        start_epochs = (start_step // steps_per_epoch
+                        if steps_per_epoch else self._preheat_epochs)
+        if (start_step >= self._preheat_steps
+                and start_epochs >= self._preheat_epochs):
+            phase = "base"
+        model.set_gradient_checkpointing(t.gradient_checkpointing,
+                                         t.remat_policy)
+        model.train()
+        self.state = TrainState(start_step, phase)
+        self.tx = self._build_tx(preheat_only=(phase == "preheat"))
+        self._best_metric = None
+        self._bad_evals = 0
+
+    # -- construction helpers ------------------------------------------------
+    def _build_tx(self, preheat_only: bool):
+        tx, self.labels = build_optimizer(
+            self.model, self.cfg.training,
+            prefixes_to_preheat=self.cfg.model.prefixes_to_preheat,
+            frozen_keywords=self.cfg.model.params_to_keep_frozen_keywords,
+            preheat_only=preheat_only)
+        return tx
+
+    # -- phases --------------------------------------------------------------
+    def _maybe_unfreeze(self) -> None:
+        # the preheat phase ends once BOTH the step threshold and the epoch
+        # threshold have passed; without a known epoch length the epoch
+        # threshold is vacuous
+        epochs_done = (self.state.step // self.steps_per_epoch
+                       if self.steps_per_epoch else self._preheat_epochs)
+        if (self.state.phase == "preheat"
+                and epochs_done >= self._preheat_epochs
+                and self.state.step >= self._preheat_steps):
+            logger.info("Unfreezing at step %d (fresh optimizer state)",
+                        self.state.step)
+            self.tx = None  # free the preheat moments before the new ones
+            self.tx = self._build_tx(preheat_only=False)
+            self.state.phase = "base"
+
+    # -- one micro-batch -----------------------------------------------------
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """Forward, backward and the optimizer's step on one micro-batch.
+        Returns the loss parts and the micro-batch's gradient norm as
+        0-d tensors (read only when logged)."""
+        params = self.tx.params
+        for p in params:
+            p.grad = None
+        total, parts = loss_fn(self.model, self.model_cfg, batch,
+                               self.num_prefix_tokens)
+        total.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        parts = {k: v.detach() for k, v in parts.items()}
+        parts["grad_norm"] = global_norm(grads)
+        if self.cfg.training.watch_grads:
+            # keyed as the JAX trainer's grad_norm/<encoder|decoder>/<module>
+            parts.update(module_grad_norms(self.model.named_parameters(),
+                                           sep="/"))
+        self.tx.step(grads)
+        for p in params:
+            p.grad = None
+        return parts
+
+    # -- main loop -----------------------------------------------------------
+    def train(self, train_iter: Iterable[Dict[str, np.ndarray]]) -> TrainState:
+        t = self.cfg.training
+        last_log = time.time()
+        prof = start_trace(t.profile_dir) if t.profile_dir else None
+        try:
+            for batch in train_iter:
+                # max_steps <= 0 = HF's "train by num_train_epochs"
+                # convention: the loader exhausting its epochs ends the run
+                if t.max_steps > 0 and self.state.step >= t.max_steps:
+                    break
+                self._maybe_unfreeze()
+                parts = self.train_step(to_device(batch, self.device))
+                self.state.step += 1
+
+                if self.state.step % t.logging_steps == 0:
+                    parts = {k: float(v) for k, v in parts.items()}
+                    dt = time.time() - last_log
+                    last_log = time.time()
+                    logger.info("step %d %s (%.2f s/%d steps)",
+                                self.state.step,
+                                {k: round(v, 4) for k, v in parts.items()},
+                                dt, t.logging_steps)
+                    self.metrics_logger.log(parts, self.state.step)
+
+                spe = self.steps_per_epoch
+                at_epoch_end = bool(spe) and self.state.step % spe == 0
+                epochs_done = self.state.step // spe if spe else 0
+                # eval_delay counts units of the active strategy
+                if self.eval_fn is not None and (
+                        (t.eval_strategy == "steps"
+                         and self.state.step % t.eval_steps == 0
+                         and self.state.step >= t.eval_delay)
+                        or (t.eval_strategy == "epoch" and at_epoch_end
+                            and epochs_done >= t.eval_delay)):
+                    if self._run_eval():
+                        break
+                if self.checkpoint_fn is not None and (
+                        (t.save_strategy == "steps"
+                         and self.state.step % t.save_steps == 0)
+                        or (t.save_strategy == "epoch" and at_epoch_end)):
+                    self.checkpoint_fn(self.model, self.state.step)
+                if prof is not None and self.state.step >= PROFILE_STEPS:
+                    stop_trace(prof, t.profile_dir)
+                    prof = None
+        finally:
+            if prof is not None:
+                stop_trace(prof, t.profile_dir)
+        if (t.load_best_model_at_end and self._best_saved
+                and self.load_best_fn is not None):
+            logger.info("Reloading best checkpoint (metric %s = %s)",
+                        t.metric_for_best_model, self._best_metric)
+            self.load_best_fn(self.model)
+        self.metrics_logger.close()
+        return self.state
+
+    def _run_eval(self) -> bool:
+        """Returns True if early stopping triggered."""
+        t = self.cfg.training
+        metrics = self.eval_fn(self.model, self.state.step)
+        logger.info("eval @ %d: %s", self.state.step, metrics)
+        self.metrics_logger.log(metrics, self.state.step)
+        key = t.metric_for_best_model
+        if key and key in metrics:
+            value = metrics[key]
+            better = (self._best_metric is None
+                      or (value > self._best_metric) == t.greater_is_better)
+            if better and value != self._best_metric:
+                self._best_metric = value
+                self._bad_evals = 0
+                if self.save_best_fn is not None:
+                    self.save_best_fn(self.model, self.state.step)
+                    self._best_saved = True
+            else:
+                self._bad_evals += 1
+                if (t.early_stopping_patience > 0
+                        and self._bad_evals >= t.early_stopping_patience):
+                    logger.info("Early stopping at step %d", self.state.step)
+                    return True
+        return False

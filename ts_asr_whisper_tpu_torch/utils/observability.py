@@ -1,0 +1,142 @@
+"""Observability of the port: metrics logging and device profiling.
+
+``MetricsLogger`` is the JAX package's (ts_asr_whisper_tpu/utils/
+observability.py:24-73) as it is: a JSONL metrics stream (``metrics.jsonl``)
+plus an optional wandb passthrough. ``start_trace``/``stop_trace``/
+``profile_trace`` and ``grad_param_norms`` are the torch counterparts of the
+JAX helpers: ``torch.profiler`` in place of ``jax.profiler``, norms over
+tensors in place of ``optax.global_norm`` over pytrees.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from contextlib import contextmanager
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
+
+
+class MetricsLogger:
+    def __init__(self, output_dir: str, run_name: str = "run",
+                 use_wandb: bool = False, project: str = "dicow"):
+        self.path = Path(output_dir) / "metrics.jsonl"
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._file = open(self.path, "a")
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                self._wandb = wandb
+                wandb.init(project=project, name=run_name, id=run_name,
+                           resume="allow")
+            except Exception:
+                self._wandb = None
+
+    def log(self, metrics: Dict[str, float], step: int) -> None:
+        rec = {"step": step, "time": time.time(),
+               **{k: float(v) for k, v in metrics.items()}}
+        self._file.write(json.dumps(rec) + "\n")
+        self._file.flush()
+        if self._wandb is not None:
+            self._wandb.log(metrics, step=step)
+
+    def log_predictions(self, hyps, refs, step: int,
+                        rows_to_log: int = 10, tag: str = "") -> Path:
+        """Eval prediction table (reference write_wandb_pred,
+        evaluation.py:37-51): first N (label, hypothesis) string pairs as
+        a JSONL artifact next to the metrics stream, mirrored to a wandb
+        Table when wandb is live. Returns the artifact path."""
+        suffix = f"_{tag}" if tag else ""
+        path = self.path.parent / f"eval_predictions{suffix}_step{step}.jsonl"
+        rows = [[i, ref, hyp] for i, (hyp, ref) in
+                enumerate(zip(hyps, refs)) if i < rows_to_log]
+        with open(path, "w") as f:
+            for i, ref, hyp in rows:
+                f.write(json.dumps({"id": i, "label_str": ref,
+                                    "hyp_str": hyp}) + "\n")
+        if self._wandb is not None:
+            self._wandb.log(
+                {f"eval_predictions{suffix}/step_{step}": self._wandb.Table(
+                    columns=["id", "label_str", "hyp_str"], data=rows)},
+                step=step)
+        return path
+
+    def close(self):
+        self._file.close()
+        if self._wandb is not None:
+            self._wandb.finish()
+
+
+def start_trace(log_dir: str):
+    """Start a torch.profiler trace of CPU and, where present, CUDA
+    activity (the counterpart of jax.profiler.start_trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_trace(prof, log_dir: str) -> Path:
+    """Stop ``prof`` and write its Chrome trace under ``log_dir``."""
+    prof.stop()
+    path = Path(log_dir) / "trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    return path
+
+
+@contextmanager
+def profile_trace(log_dir: Optional[str]):
+    """torch.profiler trace context written to ``log_dir``; no-op when
+    log_dir is None."""
+    if log_dir:
+        prof = start_trace(log_dir)
+        try:
+            yield
+        finally:
+            stop_trace(prof, log_dir)
+    else:
+        yield
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32
+    (optax.global_norm)."""
+    sq = [t.float().square().sum() for t in tensors]
+    if not sq:
+        return torch.zeros(())
+    return torch.stack(sq).sum().sqrt()
+
+
+def module_grad_norms(named: Iterable[Tuple[str, torch.nn.Parameter]],
+                      sep: str = ".") -> Dict[str, torch.Tensor]:
+    """Gradient norm per module: the first two parts of the parameter name
+    (``model.`` dropped) joined by ``sep``, as ``grad_norm/<top><sep><mod>``.
+    A parameter without a gradient counts as a zero gradient."""
+    groups: Dict[str, list] = {}
+    for name, p in named:
+        key = sep.join(name.removeprefix("model.").split(".")[:2])
+        grads = groups.setdefault(f"grad_norm/{key}", [])
+        if p.grad is not None:
+            grads.append(p.grad)
+    return {k: global_norm(v) for k, v in groups.items()}
+
+
+def grad_param_norms(named: Iterable[Tuple[str, torch.nn.Parameter]]
+                     ) -> Dict[str, float]:
+    """GradLogger equivalent: global and per-module norms of gradients and
+    the global norm of parameters."""
+    named = list(named)
+    out = {"grad_norm/global": float(global_norm(
+        p.grad for _, p in named if p.grad is not None)),
+        "param_norm/global": float(global_norm(p.detach() for _, p in named))}
+    out.update({k: float(v) for k, v in module_grad_norms(named).items()})
+    return out
