@@ -6,8 +6,8 @@
 Phases, each of which fails the run (non-zero exit) when it breaks:
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
      no CUDA device -> exit 2, there is no CPU path;
-  2. build the four CUDA kernels from kernels/csrc with nvcc, one nvcc per
-     source, all started together;
+  2. build the six CUDA kernels from the five sources of kernels/csrc with
+     nvcc, one nvcc per source, all started together;
   3. flash attention vs its plain PyTorch version at the encoder's shapes,
      bf16 and fp32, with errors and median times (CUDA events, warmed up);
      F.scaled_dot_product_attention timed beside it as a yardstick only;
@@ -24,6 +24,11 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      weighs in each sum), and the psi it feeds against the CPU path;
      phases 4 and 5 time each call with CUDA events and, apart, the device
      time of its kernels with torch.profiler;
+  5b. the two KV-cache reorder kernels ('bhtd' and 'tbhd') vs their plain
+     versions, bit for bit, in bf16 and fp32, at the beam step's cache
+     (4, 10, 20, 128, 64), at T 448 and at Bb 15 (batch 3 x 5), with source
+     rows drawn with repeats, the identity and a reversal within groups;
+     CUDA-event and profiler times beside torch.index_select's;
   6. the large-v3-turbo DiCoW encoder at fp32 on 2 windows, through the
      kernel and through plain attention;
   7. long-form greedy decode of a synthetic 16-row corpus (8 two-speaker
@@ -43,7 +48,17 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      kernels launched in every encoder layer and the CTC head of every
      micro-batch, the preheat phase changing only preheat parameters, the
      base phase leaving the decoder bit-identical, the export loading
-     strictly into the port's container.
+     strictly into the port's container;
+ 10. SE-DiCoW long-form beam-5 joint-CTC decode (se_dicow_beam_joint, 8 SCBs,
+     self-enrollment from the recordings, CTC weight 0.3) of 4 rows (2
+     two-speaker recordings of 60 s, 2 calls of batch 2) at the same width,
+     with the standalone-permute reorder ('pallas') on the 'bhtd' cache:
+     every beam step must have launched kv_reorder_bhtd twice (k and v) and
+     the psi kernel once, the ancestry kernel never, and every encoder call
+     the flash kernel in its 32 layers and 8 SCB cross-attentions;
+ 11. the same decode of 1 recording (2 rows) on the 'tbhd' cache:
+     kv_reorder_tbhd twice per beam step, kv_reorder_bhtd never. The reorder
+     impl and the cache layout are restored afterwards.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing here imports jax or the JAX package.
 """
@@ -73,7 +88,7 @@ TURBO = {"vocab_size": 51866, "num_mel_bins": 128, "d_model": 1280,
          "encoder_ffn_dim": 5120, "decoder_ffn_dim": 5120,
          "max_source_positions": 1500, "max_target_positions": 448}
 KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "ancestry_attn",
-           "psi_gather_dot")
+           "psi_gather_dot", "kv_reorder_bhtd", "kv_reorder_tbhd")
 ENC_SHAPE = (16, 20, 1500, 64)   # turbo encoder attention at batch 16
 RAGGED_T = (257, 1000, 1499)
 TOLS = {torch.float32: (2e-5, 1e-5),   # as tests/test_attention.py
@@ -106,6 +121,14 @@ CTC_T, PSI_TOL = 375, 2e-5
 # 1e-3 of their maximum over (nearly) all 375 frames and every frame of a
 # candidate row counts in its sum
 BLANK_LOGIT, W_SPAN = 20.0, 300
+# KV-cache reorder: the beam step's self-attention cache, (L, Bb, H, T, hd)
+# in 'bhtd' and (L, T, Bb, H, hd) in 'tbhd', at (T, Bb): the decode's
+# generation_max_length 128 at batch 2 x 5 (the main shape) and 3 x 5, and
+# the model's maximum 448
+REORDER_CASES = ((128, 10), (128, 15), (448, 10))
+REORDER_KINDS = ("repeats", "identity", "reversal")
+# SE-DiCoW: se_dicow_greedy.yaml's SCB count
+SCB_LAYERS = 8
 
 
 def log(msg: str) -> None:
@@ -188,11 +211,12 @@ def phase_card() -> str:
 def phase_build() -> None:
     from ts_asr_whisper_tpu_torch import kernels
 
+    sources = sorted({kernels.KERNEL_SOURCES[k] for k in KERNELS})
     t0 = time.perf_counter()
-    kernels.build_all(KERNELS)
-    log(f"[build] {len(KERNELS)} sources in parallel: "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name in KERNELS:
+    kernels.build_all(sources)
+    log(f"[build] {len(sources)} sources ({len(KERNELS)} kernels) in "
+        f"parallel: {time.perf_counter() - t0:.1f} s")
+    for name in sources:
         getattr(kernels, f"{name}_lib")()
         info = kernels.build_info[name]
         log(f"[build] {name}.cu -> sm_90a in {info['seconds']:.1f} s")
@@ -486,6 +510,81 @@ def phase_psi(dev) -> dict:
     return main
 
 
+def _reorder_idx(kind: str, bb: int, gen) -> torch.Tensor:
+    """One beam step's source rows: drawn with repeats within each group of
+    BEAMS, the identity, or each group reversed."""
+    base = torch.arange(bb, device=gen.device) // BEAMS * BEAMS
+    if kind == "repeats":
+        off = torch.randint(0, BEAMS, (bb,), device=gen.device, generator=gen)
+        off[::BEAMS] = off[1::BEAMS]  # at least one repeat per group
+    elif kind == "identity":
+        off = torch.arange(bb, device=gen.device) % BEAMS
+    else:
+        off = BEAMS - 1 - torch.arange(bb, device=gen.device) % BEAMS
+    return (base + off).to(torch.int32)
+
+
+def phase_reorder(dev) -> dict:
+    """The two KV-cache reorder kernels vs their plain versions, bit for bit
+    (a copy: tolerance 0), then times at the beam step's shapes. The main
+    shape is the decode's: (4, 10, 20, 128, 64) bf16, 13.1 MB, so L2 (50 MB)
+    holds it between calls; at T 448 in fp32 (183.5 MB) it cannot. The bound
+    counts the cache read once and written once, and idx."""
+    from ts_asr_whisper_tpu_torch.ops import reorder as R
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    layers, h = TURBO["decoder_layers"], TURBO["decoder_attention_heads"]
+    fns = {"bhtd": (R.reorder_bhtd, R.reorder_bhtd_reference, 1),
+           "tbhd": (R.reorder_tbhd, R.reorder_tbhd_reference, 2)}
+    main = {}
+    for layout, (fn, ref_fn, dim) in fns.items():
+        name = f"kv_reorder_{layout}"
+        for t, bb in REORDER_CASES:
+            for dt in (torch.bfloat16, torch.float32):
+                shape = ((layers, bb, h, t, 64) if layout == "bhtd"
+                         else (layers, t, bb, h, 64))
+                cache = torch.randn(shape, device=dev,
+                                    generator=gen).to(dt)
+                errs = []
+                for kind in REORDER_KINDS:
+                    idx = _reorder_idx(kind, bb, gen)
+                    out = fn(cache, idx)
+                    ref = ref_fn(cache, idx)
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, ref):
+                        raise AssertionError(
+                            f"{name} disagrees with its plain version "
+                            f"at {shape} {dt} ({kind})")
+                    errs.append((out.float() - ref.float()).abs().max()
+                                .item())
+                idx = _reorder_idx("repeats", bb, gen)
+                ms = median_ms(lambda: fn(cache, idx), reps=50)
+                dev_ms = device_ms(lambda: fn(cache, idx))
+                plain_ms = median_ms(lambda: ref_fn(cache, idx), reps=50)
+                lib_ms = median_ms(
+                    lambda: torch.index_select(cache, dim, idx), reps=50)
+                lib_dev_ms = device_ms(
+                    lambda: torch.index_select(cache, dim, idx))
+                nbytes = 2 * cache.numel() * cache.element_size() + bb * 4
+                b = bound(0.0, nbytes, dt)
+                log(f"[reorder] {layout} {tuple(shape)} {str(dt)[6:]}: "
+                    f"equal bit for bit ({', '.join(REORDER_KINDS)}); "
+                    f"per call: kernel {ms:.4f} ms plain {plain_ms:.4f} "
+                    f"ms index_select {lib_ms:.4f} ms; device: kernel "
+                    f"{fmt_ms(dev_ms)} index_select {fmt_ms(lib_dev_ms)}; "
+                    f"bound {b['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} "
+                    f"MB)")
+                if (t, bb, dt) == (*REORDER_CASES[0], torch.bfloat16):
+                    main[name] = {"max_abs_err": max(errs), "ms": ms,
+                                  "device_ms": dev_ms,
+                                  "plain_ms": plain_ms, **b,
+                                  "library_ms": lib_ms,
+                                  "library_device_ms": lib_dev_ms}
+                del cache
+    torch.cuda.empty_cache()
+    return main
+
+
 def phase_encoder(dev) -> None:
     from ts_asr_whisper_tpu_torch.models.config import DiCoWConfig
     from ts_asr_whisper_tpu_torch.models.dicow import build_dicow
@@ -627,18 +726,24 @@ def run_decode(dev, tag: str, overrides, durations) -> dict:
     if rows != 2 * len(durations) or calls["encoder"] == 0:
         raise AssertionError(f"{tag}: {rows} rows, {calls['encoder']} "
                              "encoder calls")
-    want = TURBO["encoder_layers"] * calls["encoder"] + calls["ctc_head"]
+    # every encoder layer's self-attention, every SCB's cross-attention
+    # (SE-DiCoW) and the CTC head's bare self-attention run the kernel
+    mc = runner.container.model_config
+    per_call = mc.encoder_layers + (mc.scb_layers or 0) * mc.use_enrollments
+    want = per_call * calls["encoder"] + calls["ctc_head"]
     if launches["flash_attn_fwd"] != want:
         raise AssertionError(
             f"{tag}: flash_attn_fwd launched {launches['flash_attn_fwd']} "
-            f"times, want {want} (32 x encoder calls + CTC-head calls)")
+            f"times, want {want} ({per_call} x encoder calls + CTC-head "
+            "calls)")
     return {"runner": runner, "launches": launches, "steps": steps,
             "calls": calls, "wall": wall}
 
 
 def phase_decode(dev) -> dict:
     res = run_decode(dev, "greedy", ["+decode=dicow_v3_greedy"], [60.0] * 8)
-    if res["launches"]["ancestry_attn"] or res["launches"]["psi_gather_dot"]:
+    if any(res["launches"][k] for k in ("ancestry_attn", "psi_gather_dot",
+                                        "kv_reorder_bhtd", "kv_reorder_tbhd")):
         raise AssertionError(f"greedy decode ran beam kernels: "
                              f"{res['launches']}")
     phase_decode_loop(res["runner"], dev)
@@ -669,11 +774,15 @@ def phase_decode_loop(runner, dev, steps: int = 125) -> None:
     del model, enc
 
 
-def phase_beam_decode(dev) -> dict:
-    """dicow_v3_beam_joint through the decode entry point; the time inside
-    beam_search (prefill and cross-KV included) gives ms per beam step."""
+def run_beam_decode(dev, tag: str, overrides, durations) -> dict:
+    """A beam joint-CTC decode through the decode entry point (run_decode);
+    the time inside beam_search (prefill and cross-KV included) gives ms per
+    beam step. Checks that it was a beam joint-CTC decode whose every beam
+    step launched the psi kernel once."""
     from ts_asr_whisper_tpu_torch.decoding import ctc_rescorer
     from ts_asr_whisper_tpu_torch.decoding import longform
+    from ts_asr_whisper_tpu_torch.models.whisper import get_kv_cache_layout
+    from ts_asr_whisper_tpu_torch.ops.reorder import get_reorder_impl
 
     beam_search = longform.beam_search
     beam_s = [0.0]
@@ -686,37 +795,93 @@ def phase_beam_decode(dev) -> dict:
         beam_s[0] += time.perf_counter() - t0
         return out
 
-    gc.collect()  # the greedy phase's model
+    gc.collect()  # the models of the phases before
     torch.cuda.empty_cache()
     longform.beam_search = timed_beam_search
     try:
-        res = run_decode(dev, "beam_joint",
-                         ["+decode=dicow_v3_beam_joint",
-                          "model.ctc_weight=0.3"], [60.0] * 4)
+        res = run_decode(dev, tag, overrides, durations)
     finally:
         longform.beam_search = beam_search
     steps, launches = res["steps"], res["launches"]
     gen_cfg = res["runner"].gen_cfg
-    log(f"[beam_joint] {steps} beam steps in {beam_s[0]:.2f} s of "
-        f"beam_search: {beam_s[0] * 1e3 / max(steps, 1):.2f} ms per beam "
-        f"step (Bb {AUDIO_ROWS * BEAMS}), psi path "
+    res["ms_per_step"] = beam_s[0] * 1e3 / max(steps, 1)
+    log(f"[{tag}] {steps} beam steps in {beam_s[0]:.2f} s of "
+        f"beam_search: {res['ms_per_step']:.2f} ms per beam step (Bb "
+        f"{AUDIO_ROWS * BEAMS}), reorder impl {get_reorder_impl(device=dev)},"
+        f" cache layout {get_kv_cache_layout()}, psi path "
         f"{ctc_rescorer.resolve_psi_impl(gen_cfg.ctc_psi_impl, dev)}")
-    layers = TURBO["decoder_layers"]
     if gen_cfg.num_beams != BEAMS or not gen_cfg.ctc_weight > 0:
-        raise AssertionError(f"not a beam joint-CTC decode: {gen_cfg}")
+        raise AssertionError(f"{tag}: not a beam joint-CTC decode: {gen_cfg}")
     if steps == 0 or res["calls"]["ctc_head"] == 0:
-        raise AssertionError(f"{steps} beam steps, "
+        raise AssertionError(f"{tag}: {steps} beam steps, "
                              f"{res['calls']['ctc_head']} CTC-head calls")
+    if launches["psi_gather_dot"] != steps:
+        raise AssertionError(f"{tag}: psi_gather_dot launched "
+                             f"{launches['psi_gather_dot']} times, want "
+                             f"{steps} (one per beam step)")
+    return res
+
+
+def phase_beam_decode(dev) -> dict:
+    """dicow_v3_beam_joint on the default ('auto': the ancestry cache on the
+    card) reorder path: the ancestry kernel in every decoder layer of every
+    beam step, no reorder kernel."""
+    res = run_beam_decode(dev, "beam_joint", ["+decode=dicow_v3_beam_joint",
+                                              "model.ctc_weight=0.3"],
+                          [60.0] * 4)
+    steps, launches = res["steps"], res["launches"]
+    layers = TURBO["decoder_layers"]
+    if launches["kv_reorder_bhtd"] or launches["kv_reorder_tbhd"]:
+        raise AssertionError(f"beam_joint: the ancestry path ran a reorder "
+                             f"kernel: {launches}")
     if launches["ancestry_attn"] != layers * steps:
         raise AssertionError(f"ancestry_attn launched "
                              f"{launches['ancestry_attn']} times, want "
                              f"{layers * steps} ({layers} layers x {steps} "
                              "beam steps)")
-    if launches["psi_gather_dot"] != steps:
-        raise AssertionError(f"psi_gather_dot launched "
-                             f"{launches['psi_gather_dot']} times, want "
-                             f"{steps} (one per beam step)")
-    return launches
+    return res
+
+
+SE_DICOW = ["+decode=se_dicow_beam_joint", f"model.scb_layers={SCB_LAYERS}",
+            "model.use_enrollments=true", "data.use_enrollments=true",
+            "data.enrollment_cutsets=[]", "model.ctc_weight=0.3"]
+
+
+def phase_se_dicow(dev, layout: str, durations) -> dict:
+    """se_dicow_beam_joint with self-enrollment (no enrollment cutsets: each
+    row's enrollment is the 30 s of its recording where its speaker talks
+    most) through the decode entry point, with the standalone-permute
+    reorder ('pallas') on the ``layout`` cache: the layout's reorder kernel
+    twice per beam step (k and v), the other reorder kernel and the ancestry
+    kernel never. The reorder impl and the cache layout are restored."""
+    from ts_asr_whisper_tpu_torch.models import whisper as W
+    from ts_asr_whisper_tpu_torch.ops import reorder as R
+
+    tag = f"se_dicow_beam_joint_{layout}"
+    prev = (R.get_reorder_impl(raw=True), W.get_kv_cache_layout())
+    R.set_reorder_impl("pallas")
+    W.set_kv_cache_layout(layout)
+    try:
+        res = run_beam_decode(dev, tag, SE_DICOW, durations)
+    finally:
+        R.set_reorder_impl(prev[0])
+        W.set_kv_cache_layout(prev[1])
+    steps, launches = res["steps"], res["launches"]
+    mc = res["runner"].container.model_config
+    if not (mc.use_enrollments and mc.scb_layers == SCB_LAYERS) or len(
+            res["runner"].container.model.encoder.ca_enrolls) != SCB_LAYERS:
+        raise AssertionError(f"{tag}: not an SE-DiCoW model with "
+                             f"{SCB_LAYERS} SCBs")
+    other = "tbhd" if layout == "bhtd" else "bhtd"
+    want = {f"kv_reorder_{layout}": 2 * steps, f"kv_reorder_{other}": 0,
+            "ancestry_attn": 0}
+    got = {k: launches[k] for k in want}
+    log(f"[{tag}] encoder calls {res['calls']['encoder']} (each "
+        f"{mc.encoder_layers} layers + {SCB_LAYERS} SCBs on 2 streams), "
+        f"launches {got}, want {want}")
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, want {want}")
+    return res
 
 
 def _snapshot(model) -> dict:
@@ -903,24 +1068,33 @@ def main() -> int:
     k_bwd = phase_flash_bwd(dev)
     k_anc = phase_ancestry(dev)
     k_psi = phase_psi(dev)
+    k_reorder = phase_reorder(dev)
     phase_encoder(dev)
-    greedy = phase_decode(dev)
-    beam = phase_beam_decode(dev)
-    train = phase_train(dev)["launches"]
+    paths = {"dicow_v3_greedy": phase_decode(dev),
+             "dicow_v3_beam_joint": phase_beam_decode(dev)["launches"],
+             "dicow_v3_train": phase_train(dev)["launches"],
+             "se_dicow_beam_joint": phase_se_dicow(
+                 dev, "bhtd", [60.0] * 2)["launches"],
+             "se_dicow_beam_joint_tbhd": phase_se_dicow(
+                 dev, "tbhd", [60.0])["launches"]}
+    from ts_asr_whisper_tpu_torch.kernels import KERNEL_SOURCES
+
     csrc = "ts_asr_whisper_tpu_torch/kernels/csrc"
     replaces = {"flash_attn_fwd": "ts_asr_whisper_tpu/ops/attention.py:84",
                 "flash_attn_bwd": "ts_asr_whisper_tpu/ops/attention.py:178",
                 "ancestry_attn": "ts_asr_whisper_tpu/ops/beam_attention.py:110",
-                "psi_gather_dot": "ts_asr_whisper_tpu/ops/psi_gather.py:125"}
+                "psi_gather_dot": "ts_asr_whisper_tpu/ops/psi_gather.py:125",
+                "kv_reorder_bhtd": "ts_asr_whisper_tpu/ops/reorder.py:36",
+                "kv_reorder_tbhd": "ts_asr_whisper_tpu/ops/reorder.py:64"}
     timing = {"flash_attn_fwd": k_flash, "flash_attn_bwd": k_bwd,
-              "ancestry_attn": k_anc, "psi_gather_dot": k_psi}
+              "ancestry_attn": k_anc, "psi_gather_dot": k_psi, **k_reorder}
     record = {"kernels": [{
-        "name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
+        "name": name, "route": "cuda",
+        "source": f"{csrc}/{KERNEL_SOURCES[name]}.cu",
         "replaces": replaces[name],
-        "launches": greedy[name] + beam[name] + train[name],
-        "launches_by_path": {"dicow_v3_greedy": greedy[name],
-                             "dicow_v3_beam_joint": beam[name],
-                             "dicow_v3_train": train[name]},
+        "launches": sum(launches[name] for launches in paths.values()),
+        "launches_by_path": {path: launches[name]
+                             for path, launches in paths.items()},
         **timing[name]} for name in KERNELS]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

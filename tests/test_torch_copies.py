@@ -234,6 +234,71 @@ def test_dataset_copy_gives_the_same_eval_batches(corpus, n_mels):
             np.testing.assert_array_equal(o[k], r[k], err_msg=k)
 
 
+# SE-DiCoW's enrollment selection (datasets.py:188-373) and the enrollment
+# branches of cut_to_sample (:387-391, :497-501), copied unchanged
+ENROLLMENT_COPIES = (
+    "TS_ASR_DatasetSuperclass.sample_enrollment_window",
+    "TS_ASR_DatasetSuperclass.downsample_mean",
+    "TS_ASR_DatasetSuperclass.get_potentionally_parent_recording",
+    "TS_ASR_DatasetSuperclass.select_random_internal_enrollment",
+    "TS_ASR_DatasetSuperclass.mix_two_recordings",
+    "TS_ASR_DatasetSuperclass.sample_offsets",
+    "TS_ASR_DatasetSuperclass.sample_same_speaker_cut",
+    "TS_ASR_DatasetSuperclass.generate_enrollment_mixture",
+    "TS_ASR_DatasetSuperclass.get_conditioning_cut",
+    "TS_ASR_DatasetSuperclass.cut_to_sample",
+    "LhotseLongFormDataset.cut_to_sample",
+)
+
+
+@pytest.mark.parametrize("name", ENROLLMENT_COPIES)
+def test_enrollment_selection_copy_is_unchanged(name):
+    cls, meth = name.split(".")
+    out = inspect.getsource(getattr(getattr(tds, cls), meth))
+    assert out == inspect.getsource(getattr(getattr(jds, cls), meth))
+
+
+@pytest.mark.parametrize("source", ["internal", "external"])
+def test_dataset_copy_gives_the_same_enrollment_batches(corpus, tmp_path,
+                                                        source):
+    """Eval batches with SE-DiCoW enrollments: internal (the 30 s window of
+    the recording where the target speaker talks most) and external (a
+    mixture of the speaker's longest other recording and one other
+    speaker's, from the enrollment cutset; the numpy RNG seeded alike)."""
+    from ts_asr_whisper_tpu_torch.data.collators import \
+        DataCollator as TDataCollator
+
+    data = _data_cfg(use_enrollments=True, number_of_mixed_speakers=1)
+    tok = ByteLevelTokenizer(vocab_size=2000)
+    path, enroll = str(corpus), {}
+    if source == "external":
+        manifest = write_corpus(tmp_path / "enroll", (8.0, 9.0, 10.0), seed=5)
+        path = path.replace(".jsonl.gz", "_external_enrollment.jsonl.gz")
+        enroll = {mod: mod.load_cutsets([str(manifest)], False)[0]
+                  for mod in (jds, tds)}
+    batches = []
+    for mod, collator_cls in ((jds, DataCollator), (tds, TDataCollator)):
+        ds = mod.build_datasets([path], data, lambda x: x, 80,
+                                enrollment_cutset=enroll.get(mod))
+        collator = collator_cls(tokenizer=tok, bos_token_id=tok.bos_token_id,
+                                max_length=40, use_enrollments=True)
+        np.random.seed(11)
+        (dataset,) = ds.values()
+        batches.append(list(eval_batches(dataset, collator, 3,
+                                         pad_to_full=True)))
+    ref, out = batches
+    assert len(out) == len(ref) == 2
+    for (ri, r), (oi, o) in zip(ref, out):
+        assert ri == oi and sorted(r) == sorted(o)
+        assert r["enroll_features"].shape == (3, 80, 3000)
+        assert r["enroll_stno"].shape == (3, 4, 1500)
+        for k in r:
+            np.testing.assert_array_equal(o[k], r[k], err_msg=k)
+    # the enrollment is not the window itself
+    assert not np.array_equal(ref[0][1]["enroll_features"],
+                              ref[0][1]["input_features"][:, :, :3000])
+
+
 def _predictions(tok):
     """Timestamped token streams per (cut, speaker) as the decoder emits
     them, some beyond the cut's end."""

@@ -2,9 +2,11 @@
 against the JAX CLI (``main.main``) on the verify recipe's synthetic corpus
 and the same safetensors weights: identical tcpWER hypothesis files and
 equal tcp_wer, for long-form greedy decode and for beam-5 joint-CTC decode
-(``+decode=dicow_v3_beam_joint``, with the CTC head in the weights); the
-same logged losses and a loadable HF export for the fine-tune; and no run
-at all without a GPU unless ``--device cpu`` asks for the CPU."""
+(``+decode=dicow_v3_beam_joint``, with the CTC head in the weights), and
+for SE-DiCoW's ``+decode=se_dicow_greedy`` and ``+decode=se_dicow_beam_joint``
+on a corpus with external enrollments; the same logged losses and a
+loadable HF export for the fine-tune; and no run at all without a GPU unless
+``--device cpu`` asks for the CPU."""
 
 import json
 import subprocess
@@ -30,15 +32,11 @@ MODEL = {"vocab_size": 2000, "num_mel_bins": 80, "d_model": 32,
          "max_source_positions": 1500, "max_target_positions": 64}
 
 
-def _make_corpus(tmp, overrides):
-    manifest = write_corpus(tmp, durations=(10.0, 7.0), seed=0)
-    model_dir = tmp / "model"
-    model_dir.mkdir()
-    (model_dir / "config.json").write_text(json.dumps(MODEL))
-    # the weights the JAX CLI builds for this config, sharpened so that the
-    # decode emits text tokens and timestamps instead of all deletions
-    jcfg = load_config(overrides({"eval": manifest, "model": model_dir},
-                                 tmp / "unused"), n_devices=1)
+def _save_weights(corpus, overrides, tmp):
+    """The weights the JAX CLI builds for this config into the model dir,
+    sharpened so that the decode emits text tokens and timestamps instead
+    of all deletions; SE-DiCoW's SCB gates opened (a fresh gate is 0)."""
+    jcfg = load_config(overrides(corpus, tmp / "unused"), n_devices=1)
     jc = WhisperContainer(jcfg, seed=7)
     params = jax.tree.map(np.asarray, jc.params)
     emb = params["decoder"]["embed_tokens"] * 60
@@ -47,9 +45,21 @@ def _make_corpus(tmp, overrides):
     emb[127: jc.model_config.eos_token_id] = 0.0  # non-ASCII, unused ids
     emb[ts_begin + 100:] = 0.0                     # timestamps past 2 s
     params["decoder"]["embed_tokens"] = emb
+    if "ca_enrolls" in params["encoder"]:
+        params["encoder"]["ca_enrolls"]["gate"] = np.full_like(
+            params["encoder"]["ca_enrolls"]["gate"], 0.8)
     save_safetensors(params_to_hf(params, jc.model_config),
-                     str(model_dir / "model.safetensors"))
-    return {"eval": manifest, "model": model_dir, "tmp": tmp}
+                     str(corpus["model"] / "model.safetensors"))
+
+
+def _make_corpus(tmp, overrides):
+    manifest = write_corpus(tmp, durations=(10.0, 7.0), seed=0)
+    model_dir = tmp / "model"
+    model_dir.mkdir()
+    (model_dir / "config.json").write_text(json.dumps(MODEL))
+    corpus = {"eval": manifest, "model": model_dir, "tmp": tmp}
+    _save_weights(corpus, overrides, tmp)
+    return corpus
 
 
 @pytest.fixture(scope="module")
@@ -90,6 +100,69 @@ def _beam_joint_overrides(corpus, out_dir):
             f"training.output_dir={out_dir}"]
 
 
+def _se_dicow_overrides(decode, ctc_weight):
+    """SE-DiCoW decode on the enrollment corpus: one SCB (the tiny model has
+    two encoder layers), the eval cutset marked for external enrollment
+    mixtures from the enrollment cutset, no other speaker mixed in (the
+    mixture is then the speaker's longest enrollment cut, whatever the
+    numpy RNG of either process)."""
+    def overrides(corpus, out_dir):
+        return [f"+decode={decode}", f"model.whisper_model={corpus['model']}",
+                "data.train_cutsets=[]", "data.dev_cutsets=[]",
+                f"data.eval_cutsets=[{corpus['eval']}]",
+                f"data.enrollment_cutsets=[{corpus['enroll']}]",
+                "data.number_of_mixed_speakers=0",
+                "data.train_text_norm=null", "data.eval_text_norm=null",
+                "model.scb_layers=1", f"model.ctc_weight={ctc_weight}",
+                "model.dtype=float32", "training.generation_max_length=40",
+                "training.per_device_eval_batch_size=2",
+                "training.mesh_shape=[1]",
+                "training.save_visualizations=false",
+                f"training.output_dir={out_dir}"]
+    return overrides
+
+
+SE_DICOW = {"se_dicow_greedy": _se_dicow_overrides("se_dicow_greedy", 0.0),
+            "se_dicow_beam_joint": _se_dicow_overrides("se_dicow_beam_joint",
+                                                       0.3)}
+
+
+@pytest.fixture(scope="module")
+def enroll_corpus(tmp_path_factory):
+    """The enrollment corpus of tests/test_end_to_end.py:194-231: two 8 s
+    two-speaker recordings, and per-speaker enrollment recordings with other
+    recording ids; model weights for each SE-DiCoW decode."""
+    from test_end_to_end import _cut, _make_recording, _sup, _write_manifest
+
+    tmp = tmp_path_factory.mktemp("torch_e2e_enroll")
+    rng = np.random.default_rng(1)
+    cuts = []
+    for i in range(2):
+        rec = _make_recording(tmp, f"tr{i}", 8.0, rng)
+        cuts.append(_cut(rec, f"tr{i}_cut", [
+            _sup(rec["id"], 0.5, 3.0, "hello world again", "spkA"),
+            _sup(rec["id"], 4.0, 3.0, "yes indeed quite so", "spkB")]))
+    _write_manifest(tmp / "tr_cutset_30s.jsonl.gz", cuts)
+    enroll = []
+    for spk in ("spkA", "spkB"):
+        for j in range(2):
+            rec = _make_recording(tmp, f"enr_{spk}_{j}", 5.0 + j, rng)
+            enroll.append(_cut(rec, f"enr_{spk}_{j}_cut", [
+                _sup(rec["id"], 0.2, 4.5, "enrollment speech", spk)]))
+    _write_manifest(tmp / "enroll_cutset.jsonl.gz", enroll)
+    corpora = {}
+    for name, overrides in SE_DICOW.items():
+        model_dir = tmp / f"model_{name}"
+        model_dir.mkdir()
+        (model_dir / "config.json").write_text(json.dumps(MODEL))
+        corpora[name] = {
+            "eval": tmp / "tr_cutset_30s_external_enrollment.jsonl.gz",
+            "enroll": tmp / "enroll_cutset.jsonl.gz", "model": model_dir,
+            "tmp": tmp}
+        _save_weights(corpora[name], overrides, tmp)
+    return corpora
+
+
 def test_port_cli_matches_jax_cli(corpus, tmp_path):
     _check_cli(corpus, tmp_path, _overrides)
 
@@ -98,7 +171,13 @@ def test_port_beam_joint_cli_matches_jax_cli(corpus_ctc, tmp_path):
     _check_cli(corpus_ctc, tmp_path, _beam_joint_overrides)
 
 
-def _check_cli(corpus, tmp_path, overrides):
+@pytest.mark.parametrize("decode", sorted(SE_DICOW))
+def test_port_se_dicow_cli_matches_jax_cli(enroll_corpus, tmp_path, decode):
+    _check_cli(enroll_corpus[decode], tmp_path, SE_DICOW[decode],
+               name="tr_cutset_30s_external_enrollment")
+
+
+def _check_cli(corpus, tmp_path, overrides, name="eval_cutset"):
     import main as jax_main
 
     jax_out, port_out = tmp_path / "jax", tmp_path / "port"
@@ -112,7 +191,6 @@ def _check_cli(corpus, tmp_path, overrides):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "final metrics" in proc.stderr
 
-    name = "eval_cutset"
     jax_hyps = sorted((jax_out / f"test_{name}").rglob("tcp_wer_hyp.json"))
     port_hyps = sorted((port_out / f"test_{name}").rglob("tcp_wer_hyp.json"))
     assert [p.relative_to(jax_out) for p in jax_hyps] == \

@@ -1,6 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card: encoder flash attention forward and backward, beam ancestry attention
-and the candidate CTC-psi gather + dot. Skips without a GPU; run there with
+card: encoder flash attention forward and backward, beam ancestry attention,
+the candidate CTC-psi gather + dot and the two KV-cache reorder kernels.
+Skips without a GPU; run there with
 ``python -m pytest tests/test_torch_kernel_cuda.py -m cuda``."""
 
 import numpy as np
@@ -11,6 +12,7 @@ from ts_asr_whisper_tpu_torch.kernels import launch_counts
 from ts_asr_whisper_tpu_torch.ops import attention as A
 from ts_asr_whisper_tpu_torch.ops import beam_attention as BA
 from ts_asr_whisper_tpu_torch.ops import psi_gather as PG
+from ts_asr_whisper_tpu_torch.ops import reorder as R
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +184,89 @@ def test_psi_kernel_flags_out_of_range_ids(cuda):
     ids[0, 3] = 1000
     out = PG.psi_gather_dot(p_vt, audio_idx, ids, w)
     assert torch.isnan(out[0, 3]) and torch.isfinite(out[1]).all()
+
+
+def _reorder_idx(kind, bb, n=5, seed=0):
+    """Source rows of one beam step: drawn with repeats within each group of
+    n, the identity, or each group reversed."""
+    base = np.arange(bb) // n * n
+    if kind == "repeats":
+        rng = np.random.default_rng(seed)
+        return (base + rng.integers(0, 2, size=bb)).astype(np.int32)
+    if kind == "identity":
+        return np.arange(bb, dtype=np.int32)
+    return (base + (n - 1 - np.arange(bb) % n)).astype(np.int32)
+
+
+def _reorder_cache(layout, bb, t, dtype, device, seed=0):
+    shape = (4, bb, 20, t, 64) if layout == "bhtd" else (4, t, bb, 20, 64)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, device=device, generator=gen).to(dtype)
+
+
+@pytest.mark.parametrize("kind", ["repeats", "identity", "reversal"])
+@pytest.mark.parametrize("bb,t", [(10, 128), (15, 128), (10, 448)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["bhtd", "tbhd"])
+def test_reorder_kernel_matches_plain(cuda, layout, dtype, bb, t, kind):
+    cache = _reorder_cache(layout, bb, t, dtype, cuda, seed=bb + t)
+    idx = torch.from_numpy(_reorder_idx(kind, bb, seed=t)).to(cuda)
+    fn, ref_fn = {"bhtd": (R.reorder_bhtd, R.reorder_bhtd_reference),
+                  "tbhd": (R.reorder_tbhd, R.reorder_tbhd_reference)}[layout]
+    name = f"kv_reorder_{layout}"
+    before = launch_counts[name]
+    out = fn(cache, idx)
+    torch.cuda.synchronize()
+    assert launch_counts[name] == before + 1
+    assert out.dtype == dtype and out.data_ptr() != cache.data_ptr()
+    assert torch.equal(out, ref_fn(cache, idx))  # a copy: bit for bit
+
+
+@pytest.mark.parametrize("layout", ["bhtd", "tbhd"])
+def test_reorder_kernel_flags_out_of_range_rows(cuda, layout):
+    cache = _reorder_cache(layout, 10, 16, torch.bfloat16, cuda)
+    idx = torch.arange(10, device=cuda, dtype=torch.int32)
+    idx[3] = 10
+    out = (R.reorder_bhtd if layout == "bhtd" else R.reorder_tbhd)(cache, idx)
+    hyp = 1 if layout == "bhtd" else 2
+    assert torch.isnan(out.select(hyp, 3)).all()
+    keep = [b for b in range(10) if b != 3]
+    assert torch.equal(out.index_select(hyp, torch.tensor(keep, device=cuda)),
+                       cache.index_select(hyp, torch.tensor(keep,
+                                                            device=cuda)))
+
+
+def test_reorder_kernel_rejects_unaligned_slabs(cuda):
+    cache = torch.zeros(2, 4, 4, 3, 2, dtype=torch.bfloat16, device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    before = dict(launch_counts)
+    with pytest.raises(ValueError, match="16-byte"):
+        R.reorder_tbhd(cache, idx)  # 3 x 2 bf16 = 12-byte slabs
+    with pytest.raises(ValueError, match="idx"):
+        R.reorder_bhtd(cache, idx[:3])
+    assert launch_counts == before
+
+
+@pytest.mark.parametrize("layout,kernel", [("bhtd", "kv_reorder_bhtd"),
+                                           ("tbhd", "kv_reorder_tbhd"),
+                                           ("thbd", None)])
+def test_beam_reorder_pallas_reaches_the_kernel(cuda, layout, kernel):
+    """'pallas' on the card launches the layout's kernel ('thbd' has none
+    and takes the one-hot product, as on the TPU)."""
+    bb, n = 10, 5
+    shape = {"bhtd": (2, bb, 20, 8, 64), "tbhd": (2, 8, bb, 20, 64),
+             "thbd": (2, 8, 20, bb, 64)}[layout]
+    cache = torch.randn(shape, device=cuda).to(torch.bfloat16)
+    idx = torch.from_numpy(_reorder_idx("repeats", bb)).to(cuda)
+    chosen = (idx.long() - torch.arange(bb, device=cuda) // n * n).view(-1, n)
+    prev = R.get_reorder_impl(raw=True)
+    before = dict(launch_counts)
+    try:
+        R.set_reorder_impl("pallas")
+        out = R.beam_reorder(cache, chosen, n, idx, layout)
+    finally:
+        R.set_reorder_impl(prev)
+    hyp = {"bhtd": 1, "tbhd": 2, "thbd": 3}[layout]
+    assert torch.equal(out, cache.index_select(hyp, idx.long()))
+    for name in ("kv_reorder_bhtd", "kv_reorder_tbhd"):
+        assert launch_counts[name] == before[name] + (name == kernel)

@@ -1,19 +1,19 @@
 """Datasets of the port over cut manifests: the (cut x speaker) training
-dataset and the long-form eval datasets.
+dataset and the long-form eval datasets, with SE-DiCoW's enrollment
+selection.
 
-A copy of ts_asr_whisper_tpu/data/datasets.py:29-30, 39-40, 43-186,
-376-578 (``round_nearest``, ``get_cut_recording_id``, the
-``TS_ASR_DatasetSuperclass`` methods, ``TS_ASR_Dataset``,
-``LhotseLongFormDataset``, ``load_cutsets``, ``build_datasets``). That
-module imports the jax log-mel module at the top; only the imports differ
-here, and the featurizer is the port's numpy copy. The SE-DiCoW enrollment
-selection (datasets.py:188-373) and the enrollment branch of
-``cut_to_sample`` (:387-391) are not copied: the port refuses enrollments.
+A copy of ts_asr_whisper_tpu/data/datasets.py:29-30, 39-40, 43-578
+(``round_nearest``, ``get_cut_recording_id``, the
+``TS_ASR_DatasetSuperclass`` methods with the enrollment selection,
+``TS_ASR_Dataset``, ``LhotseLongFormDataset``, ``load_cutsets``,
+``build_datasets``). That module imports the jax log-mel module at the top;
+only the imports differ here, and the featurizer is the port's numpy copy.
 """
 
 from __future__ import annotations
 
 import re
+from dataclasses import replace
 from functools import reduce
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
@@ -22,7 +22,7 @@ import numpy as np
 
 from ..utils.logging_def import get_logger
 from .features import extract_features
-from .manifests import Cut, CutSet, MonoCut, load_manifest
+from .manifests import Cut, CutSet, MixTrack, MixedCut, MonoCut, load_manifest
 from .stno import create_stno_mask, downsample_speaker_mask
 
 logger = get_logger(__name__)
@@ -181,6 +181,193 @@ class TS_ASR_DatasetSuperclass:
             samples = self.musan_augment(samples)
         return extract_features(samples, self.num_mel_bins)
 
+    # -- enrollment selection (SE-DiCoW) ------------------------------------
+    @staticmethod
+    def sample_enrollment_window(arr, window_size=30, greedy_sample=False,
+                                 skew_param=5.0):
+        arr = np.asarray(arr, dtype=float)
+        n = len(arr)
+        weights = np.convolve(arr, np.ones(window_size), mode="valid")
+        if greedy_sample:
+            start = int(np.argmax(weights))
+            return start, weights[start]
+        max_start = n - window_size + 1
+        weights = weights[:max_start]
+        scaled = np.power(weights, skew_param)
+        if np.all(weights == 0):
+            raise ValueError("No speaker activity found.")
+        probs = scaled / scaled.sum()
+        start = int(np.random.choice(np.arange(max_start), p=probs))
+        return start, weights[start]
+
+    @staticmethod
+    def downsample_mean(arr, factor=1600):
+        arr = np.asarray(arr, dtype=float)
+        n = len(arr) // factor
+        return arr[: n * factor].reshape(n, factor).mean(axis=1)
+
+    def get_potentionally_parent_recording(self, cut: Cut) -> Cut:
+        if getattr(self, "parent_csets", None) is not None:
+            rid = get_cut_recording_id(cut)
+            if rid in self.parent_recording_to_id:
+                return self.parent_csets[self.parent_recording_to_id[rid]]
+        return cut
+
+    def select_random_internal_enrollment(self, spk_id: str, cut: Cut,
+                                          greedy_sample=False) -> Cut:
+        """30 s window where the target speaker is most active, overlaps
+        masked out (local_datasets.py:261-292)."""
+        speakers = cut.speakers
+        speakers_to_idx = {s: i for i, s in enumerate(speakers)}
+        spk_mask = cut.speakers_audio_mask(speakers_to_idx)
+        spk_mask = spk_mask.copy()
+        spk_mask[:, spk_mask.sum(axis=0) > 1] = 0  # mask overlaps
+        activity = self.downsample_mean(spk_mask[speakers_to_idx[spk_id]],
+                                        int(cut.sampling_rate / 10))
+        start, act = self.sample_enrollment_window(
+            activity, window_size=300, greedy_sample=greedy_sample)
+        if act == 0:  # fully overlapped; fall back to raw activity
+            spk_mask = cut.speakers_audio_mask(speakers_to_idx)
+            activity = self.downsample_mean(spk_mask[speakers_to_idx[spk_id]],
+                                            int(cut.sampling_rate / 10))
+            start, _ = self.sample_enrollment_window(
+                activity, window_size=300, greedy_sample=greedy_sample)
+
+        new_start = start / 10
+        new_cut = replace(cut) if isinstance(cut, MonoCut) else cut
+        if isinstance(cut, MonoCut):
+            new_cut = replace(cut, start=cut.start + new_start, duration=30.0)
+            sups = []
+            for sup in cut.supervisions:
+                if sup.end < new_start or sup.start > new_start + 30.0:
+                    continue
+                sups.append(replace(sup, start=sup.start - new_start))
+            new_cut.supervisions = sups
+            return new_cut
+        # MixedCut: shift track offsets
+        tracks = []
+        for t in cut.tracks:
+            tracks.append(MixTrack(cut=t.cut, offset=t.offset - new_start))
+        return MixedCut(id=f"{cut.id}_enroll", tracks=tracks)
+
+    @staticmethod
+    def mix_two_recordings(len_1, len_2, allowed_pause):
+        rec2_offset = np.random.uniform(
+            low=-len_1 - len_2 - allowed_pause, high=allowed_pause)
+        if -rec2_offset <= len_1:
+            return 0, len_1 + rec2_offset
+        return -(len_1 + rec2_offset), 0
+
+    @staticmethod
+    def sample_offsets(target_duration, durations, overlap_factor,
+                       allowed_pause=2.0):
+        n = len(durations)
+        duration_to_mix = target_duration * overlap_factor
+        shuffle = np.random.permutation(n)
+        prev_dur = durations[shuffle[0]]
+        offsets = np.zeros(n)
+        for i in range(1, n):
+            other = durations[shuffle[i]]
+            o1, o2 = TS_ASR_DatasetSuperclass.mix_two_recordings(
+                prev_dur, other, allowed_pause)
+            offsets[:] += o1
+            offsets[shuffle[i]] = o2
+            prev_dur = max(o1 + prev_dur, o2 + other)
+        if prev_dur < duration_to_mix:
+            offset = np.random.uniform(0, target_duration - prev_dur)
+            return 0, offsets + offset
+        if np.random.choice([-1, 1]) == 1:
+            return prev_dur - duration_to_mix, offsets
+        return 0, offsets + (target_duration - duration_to_mix)
+
+    def sample_same_speaker_cut(self, speaker_id, skip_ids, greedy_sample,
+                                max_duration):
+        speaker_cuts = self.per_speaker_enrollments[speaker_id]
+        filtered = speaker_cuts.filter(
+            lambda cut: not any(cut.recording_id in sid for sid in skip_ids)
+            and cut.duration <= max_duration)
+        if len(filtered) == 0:
+            raise ValueError(
+                f"No valid enrollment cuts for speaker {speaker_id} "
+                f"after skipping {skip_ids}")
+        weights = np.array([c.duration for c in filtered])
+        if greedy_sample:
+            return filtered[int(np.argmax(weights))]
+        idx = np.random.choice(len(filtered), p=weights / weights.sum())
+        return filtered[int(idx)]
+
+    def generate_enrollment_mixture(self, original_cut, speaker_id,
+                                    greedy_sample, max_enrollment_len=30.0,
+                                    randomly_shift_target_offset_p=1.0,
+                                    num_other_speakers=2,
+                                    min_overlap_ratio=0.3,
+                                    max_overlap_ratio=1.0):
+        """Synthesize an enrollment mixture (local_datasets.py:355-436)."""
+        skip_ids = []
+        if isinstance(original_cut, MixedCut):
+            for track in original_cut.tracks:
+                skip_ids.append(re.sub("_vp.*$", "", track.cut.recording_id))
+        else:
+            skip_ids.append(re.sub("_vp.*$", "", original_cut.recording_id))
+
+        same_spk = self.sample_same_speaker_cut(
+            speaker_id, skip_ids, greedy_sample, max_enrollment_len)
+
+        n_cand = min(len(self.enrollment_speakers), num_other_speakers + 1)
+        candidates = list(np.random.choice(self.enrollment_speakers, n_cand,
+                                           replace=False))
+        others = [s for s in candidates if s != speaker_id][:num_other_speakers]
+        other_cuts = [self.per_speaker_enrollments[s].sample() for s in others]
+        other_lens = [c.duration for c in other_cuts]
+
+        if other_lens:
+            overlap = np.random.uniform(min_overlap_ratio, max_overlap_ratio)
+            target_offset, other_offsets = self.sample_offsets(
+                same_spk.duration, other_lens, overlap)
+        else:
+            target_offset, other_offsets = 0.0, []
+
+        if not greedy_sample and np.random.rand() < randomly_shift_target_offset_p:
+            max_other_end = max((o + l for o, l in zip(other_offsets, other_lens)),
+                                default=0)
+            span = max(max_other_end, same_spk.duration)
+            target_offset = np.random.uniform(
+                0, max(0, span - same_spk.duration))
+
+        if same_spk.start + target_offset + same_spk.duration > max_enrollment_len:
+            target_offset = max_enrollment_len - (same_spk.start + same_spk.duration)
+
+        tracks = [MixTrack(cut=same_spk, offset=float(target_offset))]
+        for cut, offset in zip(other_cuts, other_offsets):
+            tracks.append(MixTrack(cut=cut, offset=float(offset)))
+
+        final_tracks = []
+        for track in tracks:
+            if track.cut.duration + track.offset > max_enrollment_len:
+                c = track.cut
+                track = MixTrack(cut=replace(
+                    c, duration=max(max_enrollment_len - track.offset, 0.0)),
+                    offset=track.offset)
+            if track.cut.duration > 0.0:
+                final_tracks.append(track)
+        return MixedCut(id=f"enrollment_{speaker_id}", tracks=final_tracks)
+
+    def get_conditioning_cut(self, cut: Cut, speaker_id: str,
+                             greedy_sample: bool) -> Cut:
+        use_external = bool(getattr(cut, "custom", None)
+                            and cut.custom.get("use_external_enrollment"))
+        if use_external:
+            if speaker_id == "-1":
+                speaker_id = list(self.per_speaker_enrollments)[0]
+            return self.generate_enrollment_mixture(
+                cut, speaker_id, greedy_sample=greedy_sample,
+                num_other_speakers=self.num_other_speakers,
+                min_overlap_ratio=self.min_overlap_ratio,
+                max_overlap_ratio=self.max_overlap_ratio)
+        parent = self.get_potentionally_parent_recording(cut)
+        return self.select_random_internal_enrollment(
+            spk_id=speaker_id, cut=parent, greedy_sample=greedy_sample)
+
     # -- sample assembly ---------------------------------------------------
     def cut_to_sample(self, cut: Cut, speaker_id: str,
                       is_nested: bool = False) -> dict:
@@ -193,6 +380,11 @@ class TS_ASR_DatasetSuperclass:
             "transcript": self.build_transcript(cut, speaker_id),
             "is_long_form": False,
         }
+        if self.use_enrollments and not is_nested:
+            other = self.get_conditioning_cut(cut, speaker_id,
+                                              greedy_sample=False)
+            out["enrollment"] = self.cut_to_sample(other, speaker_id,
+                                                   is_nested=True)
         lang = (cut.custom or {}).get("lang") if getattr(cut, "custom", None) \
             else None
         if lang:

@@ -6,7 +6,8 @@ the same runner.
 Counterpart of the decode part of ts_asr_whisper_tpu/train.py
 (``make_generation_config`` :34-78, ``ModelTrainer._build_eval``,
 ``evaluate_dataset``, ``do_eval`` and the ``decode_only`` branch of
-``train``). Pre-training, SE-DiCoW enrollments, LoRA, multi-device runs and
+``train``), SE-DiCoW's enrollment cutset union included (train.py:96-99).
+Pre-training, SE-DiCoW training, LoRA, multi-device runs and
 ``auto_find_batch_size`` are not ported yet and raise
 ``NotImplementedError``.
 """
@@ -17,6 +18,7 @@ import copy
 import dataclasses
 import math
 import os
+from functools import reduce
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -25,7 +27,7 @@ import torch
 
 from .config import Cfg
 from .data.collators import DataCollator
-from .data.datasets import build_datasets
+from .data.datasets import build_datasets, load_cutsets
 from .decoding.generation_config import GenerationConfig
 from .decoding.longform import longform_generate
 from .eval import native
@@ -84,11 +86,13 @@ def check_scope(cfg: Cfg) -> None:
     t = cfg.training
     if t.pretrain_encoder:
         raise NotImplementedError("encoder pre-training is not ported yet")
-    if cfg.data.use_enrollments or cfg.model.use_enrollments:
-        raise NotImplementedError("SE-DiCoW enrollments are not ported yet")
     if t.mesh_shape and math.prod(t.mesh_shape) > 1:
         raise NotImplementedError("multi-device runs are not ported yet")
     if not t.decode_only:
+        if cfg.data.use_enrollments or cfg.model.use_enrollments:
+            raise NotImplementedError(
+                "SE-DiCoW training (enrollments) is not ported yet; "
+                "decode_only=true decodes SE-DiCoW")
         if t.use_lora:
             raise NotImplementedError("LoRA fine-tuning is not ported yet")
         if t.auto_find_batch_size:
@@ -126,12 +130,21 @@ class DecodeRunner:
         self.container = WhisperContainer(cfg, self.device,
                                           seed=cfg.training.seed)
         self.eval_text_norm = get_text_norm(cfg.data.eval_text_norm)
+        # SE-DiCoW: the union of the enrollment cutsets, the speakers' pool
+        # for external enrollment mixtures (train.py:96-99)
+        data = cfg.data
+        self.enrollment_cutset = None
+        if data.use_enrollments and data.enrollment_cutsets:
+            self.enrollment_cutset = reduce(
+                lambda a, b: a + b,
+                load_cutsets(list(data.enrollment_cutsets), False))
         self.eval_datasets = self._build_eval(cfg.data.eval_cutsets,
                                               cfg.data.eval_diar_cutsets)
         self.collator = DataCollator(
             tokenizer=self.container.tokenizer,
             bos_token_id=self.container.model_config.bos_token_id,
-            max_length=cfg.training.generation_max_length)
+            max_length=cfg.training.generation_max_length,
+            use_enrollments=data.use_enrollments)
         self.gen_cfg = make_generation_config(
             self.container, cfg, predict_timestamps=cfg.data.use_timestamps)
         self.windows_decoded = 0  # row-windows, seek re-decodes included
@@ -148,7 +161,8 @@ class DecodeRunner:
         return build_datasets(
             existing, self.cfg.data, self.eval_text_norm,
             self.container.model_config.num_mel_bins,
-            diar_cutset_paths=diar_paths if self.cfg.data.use_diar else None)
+            diar_cutset_paths=diar_paths if self.cfg.data.use_diar else None,
+            enrollment_cutset=self.enrollment_cutset)
 
     def evaluate_dataset(self, dataset, output_dir: str,
                          metrics_list=None, model=None) -> Dict[str, float]:
@@ -169,6 +183,8 @@ class DecodeRunner:
             out = longform_generate(
                 model, self.gen_cfg, batch["input_features"],
                 batch["stno_mask"], batch["attention_mask"], forced,
+                enroll_features=batch.get("enroll_features"),
+                enroll_stno=batch.get("enroll_stno"),
                 detect_lang=detect, upper_to_lower=upper_to_lower)
             self.windows_decoded += out.windows_decoded
             batch_keys = []

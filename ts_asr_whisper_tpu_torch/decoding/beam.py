@@ -1,17 +1,25 @@
-"""Beam search of the port on an append-only KV cache.
+"""Beam search of the port.
 
-Counterpart of ts_asr_whisper_tpu/decoding/beam.py::beam_search under its
-TPU default, the 'ancestry_pallas' cache design (beam.py:207-214, 233-237,
-248-250): the cache is never permuted; ``hist[b, t]`` records which row of
-b's beam group holds b's K/V at position t, and each step's self-attention
-reads through it (models/whisper.py::decoder_cached_ancestry, the CUDA
-ancestry kernel on the card). HF beam semantics as the JAX package: 2n
-candidates per audio row, the finished pool from the top-n candidates,
-length penalty ``score / gen_len**lp``, the early-stopping heuristic, and
-the CTC rescorer state reordered by beam index. The ``lax.while_loop``
+Counterpart of ts_asr_whisper_tpu/decoding/beam.py::beam_search with every
+KV-cache strategy of its reorder switch (ops/reorder.py, beam.py:197-241):
+
+- 'ancestry_pallas' (the default on the card) and 'ancestry': the cache is
+  never permuted; ``hist[b, t]`` records which row of b's beam group holds
+  b's K/V at position t, and each step's self-attention reads through it
+  (models/whisper.py::decoder_cached_ancestry; the CUDA ancestry kernel for
+  '_pallas', its plain version for 'ancestry'). 'bhtd' layout only.
+- 'pallas' (the default elsewhere) and 'onehot': a standalone permute of
+  ``cache["k"]`` and ``cache["v"]`` every step (``beam_reorder``; the CUDA
+  kv_reorder kernels for 'pallas' in the 'bhtd' and 'tbhd' layouts).
+- 'fused' / 'fused_onehot': ``decoder_cached`` applies the permutation to
+  each layer's cache before its update (``beam_src``).
+
+HF beam semantics as the JAX package: 2n candidates per audio row, the
+finished pool from the top-n candidates, length penalty
+``score / gen_len**lp``, the early-stopping heuristic, and the CTC rescorer
+state reordered by beam index in every branch. The ``lax.while_loop``
 becomes a Python loop with one host sync per step for its condition. Ties
-are broken as ``lax.top_k`` breaks them, lower index first
-(ops/topk.py).
+are broken as ``lax.top_k`` breaks them, lower index first (ops/topk.py).
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from typing import NamedTuple
 import torch
 
 from ..models.dicow import DiCoW
+from ..models.whisper import get_kv_cache_layout
+from ..ops.reorder import beam_reorder, get_reorder_impl
 from ..ops.topk import topk_large
 from .generation_config import GenerationConfig
 from .logits_process import make_logits_processor
@@ -98,10 +108,14 @@ def beam_search(
     fin_scores = torch.full((b, n), NEG, device=dev)
     fin_lengths = torch.full((b, n), prompt_len, dtype=torch.long, device=dev)
     is_finished = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    impl = get_reorder_impl(device=dev)
+    layout = get_kv_cache_layout()
+    ancestry = impl.startswith("ancestry")
     # prefill rows are identical per group, so each row's history is its own
     # row at every position
     group_rows = torch.arange(n, dtype=torch.int32, device=dev).repeat(b)
-    hist = group_rows[:, None].repeat(1, total_len)
+    if ancestry:
+        hist = group_rows[:, None].repeat(1, total_len)
     group_base = torch.arange(b, device=dev)[:, None] * n
 
     def improvement_possible(cur_len: int) -> torch.Tensor:
@@ -157,18 +171,37 @@ def beam_search(
         tokens = _take(tokens, chosen_beam).clone()
         tokens[:, :, cur_len] = chosen_tok
 
-        # append-only cache: the ancestry map inherits the chosen ancestor's
-        # history and claims this step's slot for the row itself
+        # reorder the cache (or its ancestry map) and the CTC state by the
+        # flat beam index
         flat_beam_idx = (group_base + chosen_beam).reshape(bb)
-        hist = hist[flat_beam_idx]
-        hist[:, cur_len] = group_rows
+        beam_src = None
+        if ancestry:
+            # append-only cache: the ancestry map inherits the chosen
+            # ancestor's history and claims this step's slot for the row
+            hist = hist[flat_beam_idx]
+            hist[:, cur_len] = group_rows
+        elif impl == "fused":
+            beam_src = flat_beam_idx
+        elif impl == "fused_onehot":
+            # block-diagonal (Bb, Bb) one-hot: rows only ever pick a source
+            # within their own audio group
+            beam_src = (torch.arange(bb, device=dev)[None, :]
+                        == flat_beam_idx[:, None]).to(torch.int8)
+        else:
+            cache = {key: beam_reorder(c, chosen_beam, n, flat_beam_idx,
+                                       layout)
+                     for key, c in cache.items()}
         if ctc_scorer is not None:
             ctc_state = ctc_scorer.update_state(
                 ctc_state, chosen_tok.reshape(bb), flat_beam_idx)
 
-        hidden = dec.decoder_cached_ancestry(chosen_tok.reshape(bb, 1),
-                                             cur_len, cache, cross_kv, hist,
-                                             n)
+        if ancestry:
+            hidden = dec.decoder_cached_ancestry(
+                chosen_tok.reshape(bb, 1), cur_len, cache, cross_kv, hist, n,
+                attn_impl="kernel" if impl == "ancestry_pallas" else "plain")
+        else:
+            hidden = dec.decoder_cached(chosen_tok.reshape(bb, 1), cur_len,
+                                        cache, cross_kv, beam_src=beam_src)
         logits = dec.lm_logits(hidden[:, -1], w_logits)
         cur_len += 1
 

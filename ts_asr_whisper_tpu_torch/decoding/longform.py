@@ -6,7 +6,8 @@ in torch: the full-recording features and STNO stay on the device for the
 whole call and each window is sliced there; active rows are compacted into a
 power-of-2 bucket padded with duplicate rows (the first occurrence wins);
 one device->host fetch per window batch; language detection on the first
-window; joint CTC rescoring from the window's CTC logits; beam search; the
+window; SE-DiCoW's fixed 30 s enrollment window, gathered per bucket with the
+rows; joint CTC rescoring from the window's CTC logits; beam search; the
 no-speech skip. Refused with ``NotImplementedError``: temperature-fallback
 retries, token timestamps, int8 cross-KV and the joint-decode debug dump.
 """
@@ -316,6 +317,8 @@ def longform_generate(
     stno_mask: np.ndarray,          # (B, 4, T_total // 2)
     attention_mask: np.ndarray,     # (B, T_total) mel-frame validity
     forced_decoder_ids: np.ndarray,  # (B, P) decoder prompts
+    enroll_features: Optional[np.ndarray] = None,  # (B, n_mels, 3000)
+    enroll_stno: Optional[np.ndarray] = None,      # (B, 4, 1500)
     return_segments: bool = False,
     detect_lang: bool = False,      # fill forced_decoder_ids[:, 1]
     upper_to_lower: Optional[np.ndarray] = None,  # (2, n) CTC case-fold map
@@ -341,6 +344,12 @@ def longform_generate(
                       (0, nsf)).to(dev)
     stno_dev = F.pad(torch.as_tensor(stno_mask, dtype=torch.float32),
                      (0, nsf // 2)).to(dev)
+    # SE-DiCoW: the same enrollment window rides every seek window of its
+    # row (longform.py:422-425, 482-490)
+    enroll = ()
+    if enroll_features is not None:
+        enroll = tuple(torch.as_tensor(x, dtype=torch.float32).to(dev)
+                       for x in (enroll_features, enroll_stno))
 
     if detect_lang and gen_cfg.lang_ids:
         meta0 = np.stack([
@@ -351,7 +360,7 @@ def longform_generate(
         ])
         first, first_stno = slice_windows(feats_dev, stno_dev, meta0, nsf)
         langs = detect_language(model, gen_cfg,
-                                model.encoder(first, first_stno))
+                                model.encoder(first, first_stno, *enroll))
         forced_decoder_ids = np.asarray(forced_decoder_ids).copy()
         forced_decoder_ids[:, 1] = langs
 
@@ -374,9 +383,11 @@ def longform_generate(
         n_stno = np.clip(max_frames[rows] // 2 - seek_rows // 2, 0, nsf // 2)
         meta = np.stack([rows, seek_rows, seek_num_frames[rows], n_stno])
         window, stno_window = slice_windows(feats_dev, stno_dev, meta, nsf)
-        forced_rows = forced_dev[torch.as_tensor(rows, device=dev)]
+        rows_dev = torch.as_tensor(rows, device=dev)
+        forced_rows = forced_dev[rows_dev]
 
-        enc = model.encoder(window, stno_window)
+        enc = model.encoder(window, stno_window,
+                            *(x[rows_dev] for x in enroll))
 
         ctc_scorer = ctc_state = None
         if gen_cfg.ctc_weight > 0:

@@ -31,10 +31,14 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # the ``dtype`` argument of every C entry point
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# kernel name -> the csrc/<source>.cu that holds it
+KERNEL_SOURCES: Dict[str, str] = {
+    "flash_attn_fwd": "flash_attn_fwd", "flash_attn_bwd": "flash_attn_bwd",
+    "ancestry_attn": "ancestry_attn", "psi_gather_dot": "psi_gather_dot",
+    "kv_reorder_bhtd": "kv_reorder", "kv_reorder_tbhd": "kv_reorder"}
 # kernel name -> number of launches; each wrapper adds one where it launches
 # its kernel, and nowhere else
-launch_counts: Dict[str, int] = {"flash_attn_fwd": 0, "flash_attn_bwd": 0,
-                                  "ancestry_attn": 0, "psi_gather_dot": 0}
+launch_counts: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
 # name -> {"seconds": build time (0.0 when reused), "log": nvcc output}
 build_info: Dict[str, dict] = {}
 
@@ -107,15 +111,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def _bind(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
-    """Load ``csrc/<name>.cu`` and type its C entry point ``name``:
-    ``n_ptrs`` pointers, ``n_ints`` ints, then the stream; it returns the
-    launch's cudaError_t."""
+def _bind(name: str, n_ptrs: int, n_ints: int,
+          entry_points=None) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu`` and type its C entry points (by default the
+    one named ``name``): ``n_ptrs`` pointers, ``n_ints`` ints, then the
+    stream; each returns the launch's cudaError_t."""
     lib = load(name)
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn_name in entry_points or (name,):
+        fn = getattr(lib, fn_name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs \
+            + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -133,3 +139,7 @@ def ancestry_attn_lib() -> ctypes.CDLL:
 
 def psi_gather_dot_lib() -> ctypes.CDLL:
     return _bind("psi_gather_dot", 5, 8)
+
+
+def kv_reorder_lib() -> ctypes.CDLL:
+    return _bind("kv_reorder", 3, 4, ("kv_reorder_bhtd", "kv_reorder_tbhd"))

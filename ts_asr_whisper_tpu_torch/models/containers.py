@@ -7,7 +7,10 @@ name; weights are a seeded random init (``torch.Generator``) with the
 distributions of the JAX package's ``init_dicow``, replaced by a strict load
 of the directory's ``*.safetensors`` when there are any. Nothing is fetched
 from the network. ``reinit_encoder_from`` and ``reinit_from`` are the JAX
-container's weight re-init loaders (containers.py:122-137).
+container's weight re-init loaders (containers.py:122-137). SE-DiCoW's SCB
+count is ``model.scb_layers`` (containers.py:71); its SCBs load under their
+HF names (``encoder.ca_enrolls.{i}.cae.*``), strictly from the model
+directory or partially through the re-init loaders (containers.py:200-203).
 """
 
 from __future__ import annotations

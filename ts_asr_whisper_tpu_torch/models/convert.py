@@ -110,8 +110,13 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: DiCoWConfig,
         if conv in enc:
             _conv(out, f"{e}.{conv}", enc[conv])
     if "ca_enrolls" in enc:
-        raise NotImplementedError(
-            "SE-DiCoW SCB enrollment weights are not ported yet")
+        # SE-DiCoW SCBs (convert.py:238-243)
+        for i, sp in enumerate(_unstack(enc["ca_enrolls"])):
+            pre = f"{e}.ca_enrolls.{i}.cae"
+            _attn(out, f"{pre}.cross_attn", sp["cross_attn"])
+            _lin(out, f"{pre}.ffn.0", sp["ffn_0"])
+            _lin(out, f"{pre}.ffn.3", sp["ffn_3"])
+            out[f"{pre}.cross_gate.gate"] = np.asarray(sp["gate"])
 
     out[f"{d}.embed_tokens.weight"] = np.asarray(dec["embed_tokens"])
     out[f"{d}.embed_positions.weight"] = np.asarray(dec["embed_positions"])

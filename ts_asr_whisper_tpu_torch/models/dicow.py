@@ -1,10 +1,10 @@
-"""DiCoW model of the port: the STNO-conditioned Whisper encoder, the CTC
-head and the full encoder-decoder with HF parameter names.
+"""DiCoW / SE-DiCoW model of the port: the STNO-conditioned Whisper encoder
+with SE-DiCoW's enrollment stream and SCBs, the CTC head and the full
+encoder-decoder with HF parameter names.
 
-Counterpart of ts_asr_whisper_tpu/models/dicow.py:104-293
-(``dicow_encoder_forward`` without the SE-DiCoW SCB streams,
-``encoder_ctc_logits``, the teacher-forced ``dicow_forward``,
-``init_dicow``).
+Counterpart of ts_asr_whisper_tpu/models/dicow.py (``scb_forward``,
+``init_scb``, ``dicow_encoder_forward``, ``encoder_ctc_logits``, the
+teacher-forced ``dicow_forward``, ``init_dicow``).
 """
 
 from __future__ import annotations
@@ -30,16 +30,54 @@ from .whisper import (
 )
 
 
+class _Gate(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.gate = nn.Parameter(torch.zeros(1))
+
+
+class _CrossAttentionEnroll(nn.Module):
+    """The parameters of one SCB under their HF names: ``cross_attn``,
+    ``ffn.0`` (2D -> ffn), ``ffn.3`` (ffn -> D), ``cross_gate.gate``."""
+
+    def __init__(self, d: int, num_heads: int, ffn: int):
+        super().__init__()
+        self.cross_attn = Attention(d, num_heads)
+        self.ffn = nn.ModuleDict({"0": nn.Linear(2 * d, ffn),
+                                  "3": nn.Linear(ffn, d)})
+        self.cross_gate = _Gate()
+
+
+class SCB(nn.Module):
+    """SE-DiCoW speaker-communication block (dicow.py:53-69): the sample
+    stream attends to the enrollment stream, and only the sample stream is
+    updated, through a zero-initialised tanh gate."""
+
+    def __init__(self, d: int, num_heads: int, ffn: int):
+        super().__init__()
+        self.cae = _CrossAttentionEnroll(d, num_heads, ffn)
+
+    def forward(self, x: torch.Tensor, dtype,
+                flash: bool = False) -> torch.Tensor:
+        """x (B, 2, T, D): stream 0 the sample (query), stream 1 the
+        enrollment (keys and values) -> (B, 2, T, D)."""
+        p = self.cae
+        q, kv = x[:, 0], x[:, 1]
+        attn = p.cross_attn(q, kv, dtype, flash=flash)
+        h = gelu(linear(p.ffn["0"], torch.cat([attn, q], dim=-1), dtype))
+        h = linear(p.ffn["3"], h, dtype)
+        gate = torch.tanh(p.cross_gate.gate.to(dtype))
+        return torch.stack([q + gate * h, kv], dim=1)
+
+
 class DiCoWEncoder(nn.Module):
     """Whisper encoder (conv stem, learned positions, layer stack, final
-    norm) with initial and per-layer FDDT and the optional CTC head modules
-    (built so that DiCoW state dicts load strictly). ``flash`` routes the
-    self-attention through ``ops/attention.py::flash_mha_fwd``."""
+    norm) with initial and per-layer FDDT, SE-DiCoW's SCBs and the optional
+    CTC head modules (built so that DiCoW and SE-DiCoW state dicts load
+    strictly). ``flash`` routes the self-attention and the SCB cross-
+    attention through ``ops/attention.py::flash_mha_fwd``."""
 
     def __init__(self, cfg: DiCoWConfig, flash: bool = False):
-        if cfg.use_enrollments and cfg.scb_layers:
-            raise NotImplementedError(
-                "SE-DiCoW SCB enrollment streams are not ported yet")
         super().__init__()
         d = cfg.d_model
         self.cfg = cfg
@@ -78,6 +116,10 @@ class DiCoWEncoder(nn.Module):
                 self.subsample_conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1,
                                                  bias=False)
             self.lm_head = nn.Linear(d, cfg.ctc_vocab_size, bias=False)
+        if cfg.use_enrollments and cfg.scb_layers:
+            self.ca_enrolls = nn.ModuleList(
+                SCB(d, cfg.encoder_attention_heads, cfg.encoder_ffn_dim)
+                for _ in range(cfg.scb_layers))
 
     def stem(self, input_features: torch.Tensor) -> torch.Tensor:
         """(B, n_mels, 3000) -> (B, 1500, D): conv1 + gelu, conv2 (stride 2)
@@ -91,16 +133,45 @@ class DiCoWEncoder(nn.Module):
         return x.transpose(1, 2)
 
     def forward(self, input_features: torch.Tensor,
-                stno_mask: torch.Tensor) -> torch.Tensor:
+                stno_mask: torch.Tensor,
+                enroll_features: Optional[torch.Tensor] = None,
+                enroll_stno: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, n_mels, 3000) features, (B, 4, 1500) STNO -> last hidden
-        state (B, 1500, D) (dicow.py:104-193 without SCB streams)."""
+        state (B, 1500, D) (dicow.py:104-193).
+
+        With ``use_enrollments`` and enrollment features (B, n_mels, 3000) /
+        STNO (B, 4, 1500), the sample and the enrollment run as a stream axis
+        (B, 2, T, D): the stem over B*2 rows, the FDDTs and the first
+        ``scb_layers`` layers over both streams, each of those layers after
+        its SCB; the enrollment stream is dropped after the last SCB."""
         cfg = self.cfg
-        dt = cfg.compute_dtype
-        x = self.stem(input_features)
+        use_streams = cfg.use_enrollments and enroll_features is not None
+        if use_streams and not cfg.scb_layers:
+            raise ValueError(
+                "enroll_features provided with use_enrollments=True but "
+                "scb_layers is 0/None: the enrollment stream would never be "
+                "fused or dropped (set scb_layers>0 or omit enrollments)")
+        if use_streams:
+            feats = torch.stack([input_features, enroll_features], dim=1)
+            stno_mask = torch.stack([stno_mask, enroll_stno], dim=1)
+            b, s = feats.shape[:2]
+            x = self.stem(feats.reshape(b * s, *feats.shape[2:]))
+            x = x.reshape(b, s, *x.shape[1:])              # (B, 2, T, D)
+        else:
+            x = self.stem(input_features)
         if cfg.use_fddt and cfg.use_pre_pos_fddt:
             x = self.initial_fddt(x, stno_mask)
         x = x + self.embed_positions.weight.to(x.dtype)[: x.shape[-2]]
-        for i in range(len(self.layers)):
+        scb_n = cfg.scb_layers if use_streams else 0
+        for i in range(scb_n):
+            if cfg.use_fddt and i < cfg.num_fddts:
+                x = self.fddts[i](x, stno_mask)
+            x = self.ca_enrolls[i](x, cfg.compute_dtype, flash=self.flash)
+            if i == scb_n - 1:
+                # the enrollment stream is no longer needed
+                x, stno_mask = x[:, 0], stno_mask[:, 0]
+            x = self.layers[i](x, cfg.compute_dtype, flash=self.flash)
+        for i in range(scb_n, len(self.layers)):
             if self.remat and torch.is_grad_enabled():
                 x = checkpoint(self._layer, i, x, stno_mask,
                                use_reentrant=False)
@@ -159,11 +230,15 @@ class DiCoW(nn.Module):
         return self.model.encoder
 
     def forward(self, input_features: torch.Tensor, stno_mask: torch.Tensor,
-                decoder_input_ids: torch.Tensor):
+                decoder_input_ids: torch.Tensor,
+                enroll_features: Optional[torch.Tensor] = None,
+                enroll_stno: Optional[torch.Tensor] = None):
         """Teacher-forced forward (dicow.py:220-238): (B, n_mels, 3000)
-        features, (B, 4, 1500) STNO, (B, T) decoder input ids -> (decoder
-        logits fp32 (B, T, V), encoder last hidden (B, 1500, D))."""
-        enc = self.encoder(input_features, stno_mask)
+        features, (B, 4, 1500) STNO, (B, T) decoder input ids [, SE-DiCoW
+        enrollment features and STNO] -> (decoder logits fp32 (B, T, V),
+        encoder last hidden (B, 1500, D))."""
+        enc = self.encoder(input_features, stno_mask, enroll_features,
+                           enroll_stno)
         hidden = self.decoder(decoder_input_ids, enc)
         return self.decoder.lm_logits(hidden), enc
 
@@ -243,7 +318,28 @@ def init_dicow_(model: DiCoW, generator: torch.Generator) -> DiCoW:
                       generator)
     if hasattr(enc, "lm_head"):
         _init_linear_(enc.lm_head, generator)
+    for scb in getattr(enc, "ca_enrolls", ()):
+        _init_scb_(scb, generator)
     return model
+
+
+def _init_scb_(scb: SCB, gen: torch.Generator) -> None:
+    """init_scb (dicow.py:72-92): the cross-attention as any attention;
+    ffn.0 and ffn.3 xavier-uniform with gain 0.1 plus an identity block
+    (attention output -> first D hidden units -> output), zero biases; the
+    gate zero, so a fresh SCB leaves the sample stream as it is."""
+    p = scb.cae
+    _init_layer_(p.cross_attn, gen)
+    d = p.ffn["3"].weight.shape[0]
+    for lin in (p.ffn["0"], p.ffn["3"]):
+        d_out, d_in = lin.weight.shape
+        _uniform_(lin.weight, 0.1 * math.sqrt(6.0 / (d_in + d_out)), gen)
+        lin.bias.zero_()
+    eye = torch.eye(d, dtype=p.ffn["0"].weight.dtype,
+                    device=p.ffn["0"].weight.device)
+    p.ffn["0"].weight[:d, :d] += eye
+    p.ffn["3"].weight[:, :d] += eye
+    p.cross_gate.gate.zero_()
 
 
 def build_dicow(cfg: DiCoWConfig, device: torch.device, seed: int = 0,

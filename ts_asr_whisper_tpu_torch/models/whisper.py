@@ -1,6 +1,6 @@
 """Whisper encoder/decoder core of the port, as ``nn.Module``s.
 
-Counterpart of ts_asr_whisper_tpu/models/whisper.py:40-300, 380-550. Module
+Counterpart of ts_asr_whisper_tpu/models/whisper.py:40-300, 360-661. Module
 and parameter names follow HF ``WhisperForConditionalGeneration``, so a
 DiCoW state dict loads strictly. Per-layer weights live in
 ``nn.ModuleList``s (the JAX package stacks them on a leading axis for
@@ -23,11 +23,43 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import plain_sdpa, sdpa
-from ..ops.beam_attention import ancestry_attention
+from ..ops.beam_attention import (ancestry_attention,
+                                  ancestry_attention_reference)
 from .config import DiCoWConfig
 
 KVCache = Dict[str, torch.Tensor]
 CrossKV = List[Tuple[torch.Tensor, torch.Tensor]]
+
+# Self-attention KV-cache layout (whisper.py:360-377): 'bhtd'
+# (L, B, H, T, hd), the default and the only one of the append-only
+# ancestry cache; 'tbhd' (L, T, B, H, hd) and 'thbd' (L, T, H, B, hd) are
+# the JAX package's A/B switches, kept for the standalone-permute beam path.
+KV_LAYOUTS = ("bhtd", "tbhd", "thbd")
+_KV_LAYOUT = "bhtd"
+# beam_src, per layout: the one-hot product (whisper.py:457-458) and the
+# hypothesis dim of one layer's cache for the row gather (:462-470)
+_ONEHOT_EQ = {"bhtd": "ob,bhtd->ohtd", "tbhd": "ob,tbhd->tohd",
+              "thbd": "ob,thbd->thod"}
+_HYP_DIM = {"bhtd": 0, "tbhd": 1, "thbd": 2}
+
+
+def set_kv_cache_layout(name: str) -> None:
+    global _KV_LAYOUT
+    assert name in KV_LAYOUTS, name
+    _KV_LAYOUT = name
+
+
+def get_kv_cache_layout() -> str:
+    return _KV_LAYOUT
+
+
+def _as_bhtd(cache: torch.Tensor, layout: str) -> torch.Tensor:
+    """One layer's cache in ``layout`` viewed as (B, H, T, hd)."""
+    if layout == "tbhd":
+        return cache.permute(1, 2, 0, 3)
+    if layout == "thbd":
+        return cache.permute(2, 1, 0, 3)
+    return cache
 
 
 def linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -211,41 +243,63 @@ class WhisperDecoder(nn.Module):
 
     def init_kv_cache(self, batch: int, max_len: int,
                       device: torch.device) -> KVCache:
-        """Self-attention cache in the 'bhtd' layout: (L, B, H, T, hd)."""
+        """Zeroed self-attention cache in the current layout
+        (whisper.py:380-393)."""
         c = self.cfg
-        shape = (c.decoder_layers, batch, c.decoder_attention_heads, max_len,
-                 c.d_model // c.decoder_attention_heads)
+        heads = c.decoder_attention_heads
+        head_dim = c.d_model // heads
+        shape = {"tbhd": (max_len, batch, heads, head_dim),
+                 "thbd": (max_len, heads, batch, head_dim),
+                 "bhtd": (batch, heads, max_len, head_dim)}[_KV_LAYOUT]
+        shape = (c.decoder_layers, *shape)
         return {"k": torch.zeros(shape, dtype=c.compute_dtype, device=device),
                 "v": torch.zeros(shape, dtype=c.compute_dtype, device=device)}
 
     def decoder_cached(self, input_ids: torch.Tensor, pos: int,
-                       kv_cache: KVCache, cross_kv: CrossKV) -> torch.Tensor:
+                       kv_cache: KVCache, cross_kv: CrossKV,
+                       beam_src: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
         """Run T_new tokens at positions pos.. through the decoder, writing
-        their K/V into ``kv_cache`` in place (whisper.py:396-549 without
-        beam_src / alignment_slots). Returns the final hidden (B, T_new, D).
-        ``cross_kv`` may hold B / n audio rows for B = n beams per row.
+        their K/V into ``kv_cache`` (current layout) in place
+        (whisper.py:396-549 without alignment_slots). Returns the final
+        hidden (B, T_new, D). ``cross_kv`` may hold B / n audio rows for B =
+        n beams per row.
 
-        Query i sees cache keys j <= pos + i (whisper.py:443-446); the keys
-        past pos + T_new are left out instead of masked, which changes no
-        value: a masked key's probability is exactly 0."""
+        ``beam_src`` applies a beam permutation inside the step: each
+        layer's cache rows are first replaced, in place, by rows
+        ``beam_src[b]`` (a (B,) row gather) or by the product with a (B, B)
+        one-hot (whisper.py:453-470).
+
+        Query i sees cache keys j <= pos + i (whisper.py:443-446), with fp32
+        scores masked by finfo(float32).min in every layout; the keys past
+        pos + T_new are left out instead of masked, which changes no value:
+        a masked key's probability is exactly 0."""
         dt = self.cfg.compute_dtype
+        layout = _KV_LAYOUT
         t_new = input_ids.shape[-1]
         end = pos + t_new
         x = self.embed(input_ids, pos)
         key_pos = torch.arange(end, device=x.device)
         q_pos = pos + torch.arange(t_new, device=x.device)
         self_mask = key_pos[None, :] <= q_pos[:, None]      # (T_new, end)
+        if beam_src is not None and beam_src.ndim == 2:
+            onehot = beam_src.to(dt)
         for li, layer in enumerate(self.layers):
+            cache_k, cache_v = kv_cache["k"][li], kv_cache["v"][li]
+            if beam_src is not None:
+                for c in (cache_k, cache_v):
+                    if beam_src.ndim == 2:
+                        c.copy_(torch.einsum(_ONEHOT_EQ[layout], onehot, c))
+                    else:
+                        c.copy_(c.index_select(_HYP_DIM[layout], beam_src))
             h = layer.self_attn_layer_norm(x)
             q = layer.self_attn.query(h, dt)
             k_new, v_new = layer.self_attn.keys_values(h, dt)
-            cache_k, cache_v = kv_cache["k"][li], kv_cache["v"][li]
-            cache_k[:, :, pos:end] = k_new
-            cache_v[:, :, pos:end] = v_new
-            attn = plain_sdpa(q, cache_k[:, :, :end], cache_v[:, :, :end],
-                              self_mask)
+            ks, vs = _as_bhtd(cache_k, layout), _as_bhtd(cache_v, layout)
+            ks[:, :, pos:end] = k_new
+            vs[:, :, pos:end] = v_new
+            attn = plain_sdpa(q, ks[:, :, :end], vs[:, :, :end], self_mask)
             x = x + linear(layer.self_attn.out_proj, merge_heads(attn), dt)
-            h = layer.encoder_attn_layer_norm(x)
             x = self._cross_and_mlp(layer, x, cross_kv[li])
         return self.layer_norm(x)
 
@@ -260,15 +314,23 @@ class WhisperDecoder(nn.Module):
 
     def decoder_cached_ancestry(self, input_ids: torch.Tensor, pos: int,
                                 kv_cache: KVCache, cross_kv: CrossKV,
-                                hist: torch.Tensor, n: int) -> torch.Tensor:
+                                hist: torch.Tensor, n: int,
+                                attn_impl: str = "kernel") -> torch.Tensor:
         """One token per hypothesis through the decoder for beam search on an
-        append-only cache (whisper.py:552-661, the 'pallas' semantics):
-        input_ids (Bb, 1); kv_cache (L, Bb, H, T, hd), never permuted;
-        hist (Bb, T) the group-local ancestor row of each position; n beams
-        per audio row of ``cross_kv``. Each layer's self-attention reads the
-        pre-update cache through ``ops/beam_attention.py`` (the CUDA kernel
-        on the card), then this step's K/V is written at ``pos`` in place.
-        Returns the final hidden (Bb, 1, D)."""
+        append-only cache (whisper.py:552-661): input_ids (Bb, 1); kv_cache
+        (L, Bb, H, T, hd), never permuted; hist (Bb, T) the group-local
+        ancestor row of each position; n beams per audio row of
+        ``cross_kv``. Each layer's self-attention reads the pre-update cache
+        through ``ops/beam_attention.py``: ``ancestry_attention`` (the CUDA
+        kernel on the card) for ``attn_impl='kernel'``, the reorder impl
+        'ancestry_pallas'; its plain version on any device for 'plain', the
+        impl 'ancestry'. Then this step's K/V is written at ``pos`` in place.
+        Needs the 'bhtd' layout. Returns the final hidden (Bb, 1, D)."""
+        assert _KV_LAYOUT == "bhtd", (
+            "ancestry reorder requires the 'bhtd' KV-cache layout, got "
+            f"{_KV_LAYOUT!r}")
+        attend = {"kernel": ancestry_attention,
+                  "plain": ancestry_attention_reference}[attn_impl]
         dt = self.cfg.compute_dtype
         x = self.embed(input_ids, pos)
         for li, layer in enumerate(self.layers):
@@ -276,8 +338,7 @@ class WhisperDecoder(nn.Module):
             q = layer.self_attn.query(h, dt)
             k_new, v_new = layer.self_attn.keys_values(h, dt)
             cache_k, cache_v = kv_cache["k"][li], kv_cache["v"][li]
-            attn = ancestry_attention(q, k_new, v_new, cache_k, cache_v,
-                                      hist, pos, n)
+            attn = attend(q, k_new, v_new, cache_k, cache_v, hist, pos, n)
             cache_k[:, :, pos] = k_new[:, :, 0]
             cache_v[:, :, pos] = v_new[:, :, 0]
             x = x + linear(layer.self_attn.out_proj, merge_heads(attn), dt)
