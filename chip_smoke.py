@@ -9,13 +9,16 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
   2. build the six CUDA kernels from the five sources of kernels/csrc with
      nvcc, one nvcc per source, all started together;
   3. flash attention vs its plain PyTorch version at the encoder's shapes,
-     bf16 and fp32, with errors and median times (CUDA events, warmed up);
+     bf16 and fp32, output and row log-sum-exp, with errors and median
+     times (CUDA events, warmed up), device time (torch.profiler), TFLOP/s
+     and the share of the bound at the main shape;
      F.scaled_dot_product_attention timed beside it as a yardstick only;
-  3b. the flash-attention backward vs its plain version at the fine-tune
-     shape (4, 20, 1500, 64) and T 1499 and 257, bf16 and fp32, timed
-     with CUDA events and torch.profiler beside the backward of
-     F.scaled_dot_product_attention; FlashMHA end to end against autograd
-     through the plain forward in fp32;
+  3b. the flash-attention backward vs its plain version, both fed the
+     kernel forward's (out, lse), at the fine-tune shape (4, 20, 1500, 64)
+     and T 1499, 1000 and 257, bf16 and fp32, timed with CUDA events and
+     torch.profiler beside the backward of F.scaled_dot_product_attention;
+     FlashMHA end to end against autograd through the plain forward in
+     fp32;
   4. beam ancestry attention vs its plain version at beam 5 x batch 2,
      20 heads, cache lengths 128 and 448, bf16 and fp32;
   5. the candidate CTC-psi gather + dot vs its plain version at the turbo
@@ -93,9 +96,12 @@ ENC_SHAPE = (16, 20, 1500, 64)   # turbo encoder attention at batch 16
 RAGGED_T = (257, 1000, 1499)
 TOLS = {torch.float32: (2e-5, 1e-5),   # as tests/test_attention.py
         torch.bfloat16: (1e-2, 1e-2)}  # bf16 rounding of p and out dominates
+# the forward's row log-sum-exp against the plain version's (atol = rtol):
+# fp32 scores in both, the row sums in another order
+LSE_TOL = 1e-5
 # the backward at the fine-tune's micro-batch of 4
 BWD_SHAPE = (4, 20, 1500, 64)
-BWD_T = (1500, 1499, 257)
+BWD_T = (1500, 1499, 1000, 257)
 BWD_F32_TOL = 2e-4   # atol = rtol, as tests/test_attention.py:63
 # bf16: relative error of dq/dk/dv in Frobenius norm; the bf16 rounding of
 # ds and p before the products dominates
@@ -225,7 +231,14 @@ def phase_build() -> None:
                 log(f"[build]   {line.strip()}")
 
 
+def share(bound_ms: float, ms) -> str:
+    return "not measured" if ms is None else f"{100 * bound_ms / ms:.1f}%"
+
+
 def phase_kernel(dev) -> dict:
+    """The forward kernel vs flash_mha_reference, output and row
+    log-sum-exp, at the encoder's shapes; times with CUDA events (per call)
+    and torch.profiler (device) beside F.scaled_dot_product_attention's."""
     from ts_asr_whisper_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -237,37 +250,53 @@ def phase_kernel(dev) -> dict:
         q, k, v = (torch.randn(shape, device=dev, generator=gen) * s
                    for s in (0.125, 1.0, 1.0))
         q, k, v = (x.to(dt) for x in (q, k, v))
-        out = A.flash_mha_fwd(q, k, v)
-        ref = A.flash_mha_reference(q, k, v)
+        out, lse = A.flash_mha_fwd(q, k, v, with_lse=True)
+        out_nolse = A.flash_mha_fwd(q, k, v)
+        ref, ref_lse = A.flash_mha_reference(q, k, v, with_lse=True)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
         atol, rtol = TOLS[dt]
-        ok = torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
+        ok = (torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
+              and torch.allclose(lse, ref_lse, atol=LSE_TOL, rtol=LSE_TOL)
+              and torch.equal(out, out_nolse))
+        del ref, ref_lse, out_nolse
         ms = median_ms(lambda: A.flash_mha_fwd(q, k, v))
         plain_ms = median_ms(lambda: A.flash_mha_reference(q, k, v), reps=5)
         flop = 4 * shape[0] * shape[1] * shape[2] ** 2 * shape[3]
         log(f"[kernel] {tuple(shape)} {str(dt)[6:]}: max_abs_err {err:.3e} "
-            f"(atol {atol}, rtol {rtol}) kernel {ms:.3f} ms "
-            f"({flop / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms")
+            f"(atol {atol}, rtol {rtol}), lse {lse_err:.3e} (atol/rtol "
+            f"{LSE_TOL}) kernel {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s) "
+            f"plain {plain_ms:.3f} ms")
         if not ok:
             raise AssertionError(f"kernel disagrees at {shape} {dt}")
         if shape == ENC_SHAPE and dt == torch.bfloat16:
+            dev_ms = device_ms(lambda: A.flash_mha_fwd(q, k, v))
             lib_ms = median_ms(lambda: sdpa_fwd(q, k, v))
+            lib_dev_ms = device_ms(lambda: sdpa_fwd(q, k, v))
             nbytes = 4 * q.numel() * q.element_size()  # q, k, v in, out
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    **bound(flop, nbytes), "library_ms": lib_ms}
-            log(f"[kernel] {tuple(shape)} bf16: F.scaled_dot_product_"
-                f"attention {lib_ms:.3f} ms; bound {main['bound_ms']:.4f} "
-                f"ms ({main['bound_by']})")
-        del q, k, v, out, ref
+            main = {"max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms,
+                    "device_ms": dev_ms, "plain_ms": plain_ms,
+                    **bound(flop, nbytes), "library_ms": lib_ms,
+                    "library_device_ms": lib_dev_ms}
+            tflops = ("not measured" if dev_ms is None
+                      else f"{flop / dev_ms / 1e9:.1f} TFLOP/s")
+            log(f"[kernel] {tuple(shape)} bf16 main shape: device "
+                f"{fmt_ms(dev_ms)} ({tflops}, {share(main['bound_ms'], dev_ms)}"
+                f" of the bound {main['bound_ms']:.4f} ms, "
+                f"{main['bound_by']}); F.scaled_dot_product_attention "
+                f"{lib_ms:.3f} ms per call, device {fmt_ms(lib_dev_ms)} "
+                f"({share(main['bound_ms'], lib_dev_ms)} of the bound)")
+        del q, k, v, out, lse
     torch.cuda.empty_cache()
     return main
 
 
 def phase_flash_bwd(dev) -> dict:
     """The backward kernel vs flash_mha_bwd_reference at the fine-tune's
-    shapes; then FlashMHA (kernel forward and backward) against autograd
-    through the plain forward, fp32."""
+    shapes, both fed the kernel forward's (out, lse); then FlashMHA (kernel
+    forward and backward) against autograd through the plain forward,
+    fp32."""
     from ts_asr_whisper_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device=dev).manual_seed(6)
@@ -278,25 +307,28 @@ def phase_flash_bwd(dev) -> dict:
             q, k, v, g = (torch.randn(b, h, t, d, device=dev, generator=gen)
                           * s for s in (0.125, 1.0, 1.0, 1.0))
             q, k, v, g = (x.to(dt) for x in (q, k, v, g))
-            out = A.flash_mha_bwd(q, k, v, g)
-            ref = A.flash_mha_bwd_reference(q, k, v, g)
+            o, lse = A.flash_mha_fwd(q, k, v, with_lse=True)
+            args = (q, k, v, o, lse, g)
+            out = A.flash_mha_bwd(*args)
+            ref = A.flash_mha_bwd_reference(*args)
             torch.cuda.synchronize()
             errs, rels, ok = [], [], True
-            for o, r in zip(out, ref):
-                o, r = o.float(), r.float()
-                errs.append((o - r).abs().max().item())
-                rels.append(((o - r).norm() / r.norm()).item())
+            for x, r in zip(out, ref):
+                x, r = x.float(), r.float()
+                errs.append((x - r).abs().max().item())
+                rels.append(((x - r).norm() / r.norm()).item())
                 if dt == torch.float32:
-                    ok = ok and torch.allclose(o, r, atol=BWD_F32_TOL,
+                    ok = ok and torch.allclose(x, r, atol=BWD_F32_TOL,
                                                rtol=BWD_F32_TOL)
                 else:
                     ok = ok and rels[-1] <= BWD_BF16_REL
-            ok = ok and all(o.dtype == dt for o in out)
+            ok = ok and all(x.dtype == dt for x in out)
+            del ref
             tol = (f"atol/rtol {BWD_F32_TOL}" if dt == torch.float32
                    else f"Frobenius rel <= {BWD_BF16_REL}")
-            ms = median_ms(lambda: A.flash_mha_bwd(q, k, v, g))
-            plain_ms = median_ms(
-                lambda: A.flash_mha_bwd_reference(q, k, v, g), reps=5)
+            ms = median_ms(lambda: A.flash_mha_bwd(*args))
+            plain_ms = median_ms(lambda: A.flash_mha_bwd_reference(*args),
+                                 reps=5)
             flop = 10 * b * h * t * t * d
             log(f"[flash_bwd] ({b}, {h}, {t}, {d}) {str(dt)[6:]}: dq/dk/dv "
                 f"max_abs_err {', '.join(f'{e:.3e}' for e in errs)}, "
@@ -307,7 +339,7 @@ def phase_flash_bwd(dev) -> dict:
                 raise AssertionError(f"backward kernel disagrees at T {t} "
                                      f"{dt}")
             if t == BWD_SHAPE[2] and dt == torch.bfloat16:
-                dev_ms = device_ms(lambda: A.flash_mha_bwd(q, k, v, g))
+                dev_ms = device_ms(lambda: A.flash_mha_bwd(*args))
                 qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
                 lib_out = sdpa_fwd(qr, kr, vr)
 
@@ -316,16 +348,24 @@ def phase_flash_bwd(dev) -> dict:
                                         retain_graph=True)
 
                 lib_ms = median_ms(lib_bwd)
-                nbytes = 7 * q.numel() * q.element_size()  # q k v g, dq dk dv
+                lib_dev_ms = device_ms(lib_bwd)
+                # q k v g out and lse in, dq dk dv out
+                nbytes = (8 * q.numel() * q.element_size()
+                          + lse.numel() * lse.element_size())
                 main = {"max_abs_err": max(errs), "frobenius_rel": max(rels),
                         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                        **bound(flop, nbytes), "library_ms": lib_ms}
-                log(f"[flash_bwd] bf16 main shape: device {fmt_ms(dev_ms)}, "
+                        **bound(flop, nbytes), "library_ms": lib_ms,
+                        "library_device_ms": lib_dev_ms}
+                tflops = ("not measured" if dev_ms is None
+                          else f"{flop / dev_ms / 1e9:.1f} TFLOP/s")
+                log(f"[flash_bwd] bf16 main shape: device {fmt_ms(dev_ms)} "
+                    f"({tflops}, {share(main['bound_ms'], dev_ms)} of the "
+                    f"bound {main['bound_ms']:.4f} ms, {main['bound_by']}); "
                     f"F.scaled_dot_product_attention backward {lib_ms:.3f} "
-                    f"ms, bound {main['bound_ms']:.4f} ms "
-                    f"({main['bound_by']})")
+                    f"ms per call, device {fmt_ms(lib_dev_ms)} "
+                    f"({share(main['bound_ms'], lib_dev_ms)} of the bound)")
                 del qr, kr, vr, lib_out
-            del q, k, v, g, out, ref
+            del q, k, v, g, o, lse, args, out
 
     # FlashMHA end to end (forward and backward kernels) vs autograd
     # through the plain forward, fp32

@@ -5,6 +5,7 @@ plain version."""
 
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +37,22 @@ def test_reference_matches_tpu_kernel_and_xla(rng, t):
     np.testing.assert_allclose(out, tpu, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(out, xla, atol=ATOL, rtol=RTOL)
     assert A.launch_counts["flash_attn_fwd"] == before  # CPU: no launch
+
+
+@pytest.mark.parametrize("t", [256, 300, 1500])
+def test_reference_lse_is_logsumexp_of_the_jax_scores(rng, t):
+    """The row log-sum-exp that the forward saves for the backward:
+    logsumexp of the JAX package's fp32 scores on the same inputs."""
+    q, k, v = _qkv(rng, t)
+    scores = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), jnp.asarray(k),
+                        preferred_element_type=jnp.float32)
+    want = np.asarray(jax.nn.logsumexp(scores, axis=-1))
+    out, lse = A.flash_mha_fwd(*(torch.from_numpy(x) for x in (q, k, v)),
+                               with_lse=True)
+    assert lse.shape == (1, 2, t) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(out, A.flash_mha_reference(
+        *(torch.from_numpy(x) for x in (q, k, v))), atol=0, rtol=0)
 
 
 def test_reference_rounds_p_to_v_dtype(rng):
@@ -85,7 +102,7 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(kernels, "flash_attn_fwd_lib", no_build)
     monkeypatch.setattr(A, "flash_mha_reference",
-                        lambda *a: pytest.fail("plain version taken"))
+                        lambda *a, **kw: pytest.fail("plain version taken"))
     before = A.launch_counts["flash_attn_fwd"]
     with pytest.raises(RuntimeError, match="nvcc"):
         A.flash_mha_fwd(cuda_like, cuda_like, cuda_like)

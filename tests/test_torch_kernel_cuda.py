@@ -69,15 +69,34 @@ def test_sdpa_dispatches_encoder_attention_to_the_kernel(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [256, 257, 300, 1499, 1500])
-def test_backward_kernel_matches_plain(cuda, dtype, t):
-    q, k, v = _qkv((2, 3, t, 64), dtype, cuda, seed=t)
-    g = _qkv((2, 3, t, 64), dtype, cuda, seed=t + 1)[1]
-    before = launch_counts["flash_attn_bwd"]
-    out = A.flash_mha_bwd(q, k, v, g)
+@pytest.mark.parametrize("t", [128, 257, 1000, 1499, 1500])
+def test_kernel_lse_matches_plain(cuda, dtype, t):
+    """The row log-sum-exp the forward writes for the backward; the output
+    is the same with and without it."""
+    q, k, v = _qkv((2, 3, t, 64), dtype, cuda, seed=t + 7)
+    out, lse = A.flash_mha_fwd(q, k, v, with_lse=True)
     torch.cuda.synchronize()
-    assert launch_counts["flash_attn_bwd"] == before + 1
-    ref = A.flash_mha_bwd_reference(q, k, v, g)
+    ref_out, ref_lse = A.flash_mha_reference(q, k, v, with_lse=True)
+    assert lse.shape == (2, 3, t) and lse.dtype == torch.float32
+    # fp32 scores of bf16 products are exact in both; only the summation
+    # order of the row sum differs
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out, A.flash_mha_fwd(q, k, v), atol=0, rtol=0)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                               rtol=rtol)
+
+
+def _bwd_inputs(t, dtype, device):
+    """q, k, v, g and the kernel forward's (out, lse), fed alike to the
+    kernel and to the plain backward."""
+    q, k, v = _qkv((2, 3, t, 64), dtype, device, seed=t)
+    g = _qkv((2, 3, t, 64), dtype, device, seed=t + 1)[1]
+    out, lse = A.flash_mha_fwd(q, k, v, with_lse=True)
+    return q, k, v, out, lse, g
+
+
+def _assert_bwd_close(out, ref, dtype):
     for o, r in zip(out, ref):
         assert o.dtype == dtype
         if dtype == torch.float32:  # as tests/test_attention.py:63
@@ -87,14 +106,42 @@ def test_backward_kernel_matches_plain(cuda, dtype, t):
             assert rel <= 1e-2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [128, 256, 257, 300, 1499, 1500])
+def test_backward_kernel_matches_plain(cuda, dtype, t):
+    args = _bwd_inputs(t, dtype, cuda)
+    before = launch_counts["flash_attn_bwd"]
+    out = A.flash_mha_bwd(*args)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attn_bwd"] == before + 1
+    _assert_bwd_close(out, A.flash_mha_bwd_reference(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_calls_agree(cuda, dtype):
+    """dq's fp32 sums arrive in a varying order (bf16: added into the
+    accumulator by the card's bulk reduce), so two calls agree within the
+    tolerance, not bit for bit; dk and dv carry no such sum."""
+    args = _bwd_inputs(1500, dtype, cuda)
+    first = A.flash_mha_bwd(*args)
+    second = A.flash_mha_bwd(*args)
+    _assert_bwd_close(second, first, dtype)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
+                                                             second[2])
+
+
 def test_backward_kernel_rejects_other_head_dims(cuda):
     q, k, v = _qkv((1, 2, 300, 32), torch.bfloat16, cuda)
+    lse = torch.zeros(1, 2, 300, device=cuda)
     before = launch_counts["flash_attn_bwd"]
     with pytest.raises(ValueError, match="head dim"):
-        A.flash_mha_bwd(q, k, v, q)
+        A.flash_mha_bwd(q, k, v, q, lse, q)
     half = [x.half() for x in _qkv((1, 2, 300, 64), torch.float32, cuda)]
     with pytest.raises(ValueError, match="dtype"):
-        A.flash_mha_bwd(*half, half[0])
+        A.flash_mha_bwd(*half, half[0], lse, half[0])
+    bf = _qkv((1, 2, 300, 64), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="lse"):
+        A.flash_mha_bwd(*bf, bf[0], lse.bfloat16(), bf[0])
     assert launch_counts["flash_attn_bwd"] == before
 
 

@@ -68,9 +68,12 @@ def find_nvcc() -> str:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into a shared library unless a build of the
-    same source already exists; return the library's path."""
+    same source (and the same ``csrc/*.cuh`` headers) already exists; return
+    the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers count too: an edited header rebuilds every source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib = out_dir / f"lib{name}.so"
@@ -102,44 +105,48 @@ def build_all(names) -> None:
         list(pool.map(build, names))
 
 
+# source -> {C entry point: (pointers, ints)}; each entry point takes that
+# many pointers, then that many ints, then the stream, and returns the
+# launch's cudaError_t. Typed once, when the library loads.
+ENTRY_POINTS: Dict[str, Dict[str, tuple]] = {
+    "flash_attn_fwd": {"flash_attn_fwd": (5, 5)},
+    "flash_attn_bwd": {"flash_attn_bwd": (11, 5)},
+    "ancestry_attn": {"ancestry_attn": (7, 7)},
+    "psi_gather_dot": {"psi_gather_dot": (5, 8)},
+    "kv_reorder": {"kv_reorder_bhtd": (3, 4), "kv_reorder_tbhd": (3, 4)}}
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu`` and type its entry
+    points; cached per process."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name)))
+            for fn_name, (n_ptrs, n_ints) in ENTRY_POINTS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = [ctypes.c_void_p] * n_ptrs \
+                    + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
         return lib
 
 
-def _bind(name: str, n_ptrs: int, n_ints: int,
-          entry_points=None) -> ctypes.CDLL:
-    """Load ``csrc/<name>.cu`` and type its C entry points (by default the
-    one named ``name``): ``n_ptrs`` pointers, ``n_ints`` ints, then the
-    stream; each returns the launch's cudaError_t."""
-    lib = load(name)
-    for fn_name in entry_points or (name,):
-        fn = getattr(lib, fn_name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs \
-            + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def flash_attn_fwd_lib() -> ctypes.CDLL:
-    return _bind("flash_attn_fwd", 4, 5)
+    return load("flash_attn_fwd")
 
 
 def flash_attn_bwd_lib() -> ctypes.CDLL:
-    return _bind("flash_attn_bwd", 8, 5)
+    return load("flash_attn_bwd")
 
 
 def ancestry_attn_lib() -> ctypes.CDLL:
-    return _bind("ancestry_attn", 7, 7)
+    return load("ancestry_attn")
 
 
 def psi_gather_dot_lib() -> ctypes.CDLL:
-    return _bind("psi_gather_dot", 5, 8)
+    return load("psi_gather_dot")
 
 
 def kv_reorder_lib() -> ctypes.CDLL:
-    return _bind("kv_reorder", 3, 4, ("kv_reorder_bhtd", "kv_reorder_tbhd"))
+    return load("kv_reorder")

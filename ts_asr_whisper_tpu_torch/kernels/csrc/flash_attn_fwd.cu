@@ -1,4 +1,6 @@
-// Encoder self-attention forward for Hopper (sm_90a): out = softmax(q k^T) v.
+// Encoder self-attention forward for Hopper (sm_90a): out = softmax(q k^T) v,
+// and, when asked for, the row log-sum-exp lse = m + log(l) that the backward
+// (flash_attn_bwd.cu) takes instead of recomputing the row statistics.
 //
 // Replaces the TPU kernel ts_asr_whisper_tpu/ops/attention.py::_flash_mha_fwd
 // (body _attn_kernel): unmasked attention over (B*H, T, 64) with q already
@@ -9,192 +11,221 @@
 // What bounds it on the H100: per (batch*head) pair at T=1500, hd=64 the two
 // products take 2 * 2 * 1500^2 * 64 ~= 0.58 GFLOP against ~0.58 MB of q, k, v
 // and out in bf16 -- about 1,000 FLOP per byte, far above the card's ~295
-// FLOP/byte balance point. It is bound by arithmetic, not by memory; the
-// (T, T) score matrix is what must never reach device memory (at the turbo
-// shape (16, 20, 1500, 64), about 184 GFLOP per call, it would be 2.9 GB in
-// fp32).
+// FLOP/byte balance point. It is bound by arithmetic (the tensor cores), not
+// by memory; the (T, T) score matrix never reaches device memory.
 //
-// Design. The TPU kernel keeps all of K and V for one (batch*head) in VMEM;
-// at T=1500 that is 384 KB in bf16, more than the 227 KB of shared memory a
-// block may use. So K/V stream through shared memory in 64-key tiles with an
-// online softmax (running max and sum in fp32, fp32 accumulator), and no
-// score ever leaves registers:
-//   - bf16: one block per (batch*head, 64-row q tile), 4 warps of 16 q rows.
-//     Both products run on the tensor cores through mma.sync m16n8k16 (bf16
-//     in, fp32 accumulate). The S accumulator fragment is repacked in
-//     registers as the A operand of P.V, rounded to bf16 as the TPU kernel
-//     rounds p to v's dtype; the row sum is taken over the unrounded fp32 p.
-//   - fp32: tensor cores would mean TF32, which keeps ~3 decimal digits; this
-//     path uses plain FMA instead: one thread per q row (128 rows per block),
-//     32-key tiles, K/V rows read from shared memory as broadcasts.
-// The ragged last key tile and the ragged last q tile are masked here, with
-// no padding on the host. Shared-memory rows of the bf16 path are padded to
-// 72 elements so that the fragment reads are free of bank conflicts.
-// Not yet used: wgmma, TMA, cp.async pipelining, warp specialisation.
+// Design of the bf16 path (the main path), warp-specialised:
+//   - one block per (batch*head, 128-row q tile), three warpgroups: a
+//     producer that drops to 40 registers (setmaxnreg) and issues every TMA
+//     load from one thread, and two consumers of 64 q rows each (232
+//     registers);
+//   - the Q tile is loaded once by TMA; K and V tiles of 128 keys x 64 head
+//     dims (16 KB each) stream through a STAGES-deep shared-memory ring
+//     guarded by full (TMA bytes) and empty (8 consumer-warp arrivals)
+//     mbarriers (lane 0 of each consumer warp releases a stage once its
+//     products are done), so loads of the next tiles overlap this tile's
+//     products;
+//   - TMA maps are 3-D (64, T, B*H) with 128-byte swizzle: the ragged last
+//     tile of one (batch*head) reads zeros, never the next one's rows;
+//   - S = Q K^T: wgmma m64n128k16, A = Q and B = K from shared memory
+//     (K-major), 4 k-steps over the head dim;
+//   - online softmax in fp32 registers; keys >= T of the last tile set to
+//     -FLT_MAX explicitly (a zero-filled key would score 0, not masked);
+//     exp2 (ex2.approx.ftz) with log2(e) folded into one FFMA; the row
+//     sum over the unrounded fp32 p; one division by it per row, in the
+//     epilogue;
+//   - O += P V: wgmma m64n64k16, P from registers (the S accumulator
+//     fragment repacked as the A fragment after rounding to bf16, as the TPU
+//     kernel rounds p to v's dtype), V the MN-major ("transposed") B operand
+//     in shared memory, 8 k-steps over the tile's keys;
+//   - q rows >= T are computed and never stored.
+//   - every wgmma group is waited for at once; the two consumers interleave,
+//     so one's softmax runs while the other's products do. Issuing S of the
+//     next tile before P V of this one inside a consumer (FA3's overlap)
+//     measured slower on an H100 (0.625 against 0.537 ms of device time at
+//     (16, 20, 1500, 64) in chip_smoke.py).
+// Not yet used: clusters (K/V multicast), a persistent grid.
+//
+// fp32 path: tensor cores would mean TF32, which keeps ~3 decimal digits, so
+// it uses plain FMA: one thread per q row (128 rows per block), 32-key tiles,
+// K/V rows read from shared memory as broadcasts. Not a speed target.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include "hopper_sm90.cuh"
+
 namespace {
 
-constexpr int HD = 64;             // head dim, every Whisper size
+using namespace sm90;
+
+constexpr int HD = 64;              // head dim, every Whisper size
 constexpr float MASKED = -FLT_MAX;  // finfo(float32).min, as the TPU kernel
+constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int BQ = 64;             // q rows per block: 4 warps x 16
-constexpr int BK = 64;             // keys per shared-memory tile
-constexpr int LDS = HD + 8;        // padded row, in bf16 elements
+constexpr int BQ = 128;               // q rows per block, 64 per consumer
+constexpr int BK = 128;               // keys per K/V tile
+constexpr int STAGES = 3;             // depth of the K/V ring
+constexpr int TILE = BK * HD * 2;     // bytes of a 128-row bf16 tile
+constexpr int OFF_K = TILE;           // Q tile first
+constexpr int OFF_V = OFF_K + STAGES * TILE;
+constexpr int OFF_BAR = OFF_V + STAGES * TILE;
+constexpr int SMEM_BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;  // + align
+constexpr int THREADS = 384;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+__global__ void __launch_bounds__(THREADS, 1)
+attn_fwd_bf16_sm90(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   uint16_t* __restrict__ o, float* __restrict__ lse, int t) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qbar = base + OFF_BAR;
+  const uint32_t full = qbar + 8, empty = full + 8 * STAGES;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int n_tiles = (t + BK - 1) / BK;
 
-// two floats -> bf16x2, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__global__ void __launch_bounds__(128)
-attn_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-              const uint16_t* __restrict__ v, uint16_t* __restrict__ o, int t) {
-  __shared__ __align__(16) uint16_t ks[BK * LDS];
-  __shared__ __align__(16) uint16_t vs[BK * LDS];
-
-  const size_t base = (size_t)blockIdx.y * t * HD;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;  // mma group / thread in group
-  const int r0 = blockIdx.x * BQ + warp * 16 + g;  // rows r0 and r0 + 8
-  const int r1 = r0 + 8;
-
-  // Q as A fragments for the 4 k-steps over the head dim; rows past t are 0
-  const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q + base);
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    qa[kk][0] = r0 < t ? q32[(r0 * HD + c) >> 1] : 0u;
-    qa[kk][1] = r1 < t ? q32[(r1 * HD + c) >> 1] : 0u;
-    qa[kk][2] = r0 < t ? q32[(r0 * HD + c + 8) >> 1] : 0u;
-    qa[kk][3] = r1 < t ? q32[(r1 * HD + c + 8) >> 1] : 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // lane 0 of every consumer warp
+    }
+    fence_mbar_init();
   }
+  __syncthreads();
 
-  float acc[8][4];  // 16 x 64 output per warp: 8 n-tiles of 8 head dims
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < t; k0 += BK) {
-    // K/V tile -> shared memory, 16 bytes per load; keys past t are zeros
-    for (int i = tid; i < BK * HD / 8; i += 128) {
-      const int row = i >> 3, c8 = (i & 7) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + row < t) {
-        const size_t off = base + (size_t)(k0 + row) * HD + c8;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&ks[row * LDS + c8]) = kv;
-      *reinterpret_cast<uint4*>(&vs[row * LDS + c8]) = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const uint16_t* krow = &ks[(nt * 8 + g) * LDS + tig * 2];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_bf16_16816(s[nt], qa[kk], b0, b1);
+  if (wg == 0) {
+    // ------------------------------------------------------ producer
+    setmaxnreg_dec<40>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(qbar, TILE);
+      tma_load_3d(base, &qmap, qbar, 0, q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        const uint32_t ph = (j / STAGES) & 1;
+        mbar_wait(empty + 8 * s, ph ^ 1);
+        mbar_arrive_expect_tx(full + 8 * s, 2 * TILE);
+        tma_load_3d(base + OFF_K + s * TILE, &kmap, full + 8 * s, 0, j * BK,
+                    bh);
+        tma_load_3d(base + OFF_V + s * TILE, &vmap, full + 8 * s, 0, j * BK,
+                    bh);
       }
     }
-    if (k0 + BK > t) {  // ragged last tile
+  } else {
+    // ------------------------------------------------------ consumers
+    setmaxnreg_inc<232>();
+    const int c = wg - 1;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, tq = lane & 3;
+    const int r0 = q0 + c * 64 + warp * 16 + g;  // rows r0 and r0 + 8
+    const int r1 = r0 + 8;
+
+    float acc[32];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float m0 = MASKED, m1 = MASKED, l0 = 0.f, l1 = 0.f;
+
+    mbar_wait(qbar, 0);
+    const uint64_t qdesc = desc_b128(base + c * (TILE / 2));
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      mbar_wait(full + 8 * s, (j / STAGES) & 1);
+      const uint32_t ks = base + OFF_K + s * TILE;
+      const uint32_t vs = base + OFF_V + s * TILE;
+
+      // S = Q K^T, 64 rows x 128 keys
+      float sc[64];
+      wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (k0 + nt * 8 + tig * 2 + j >= t) s[nt][j] = s[nt][2 + j] = MASKED;
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128_ss(sc, qdesc + 2 * kk, desc_b128(ks) + 2 * kk, kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+
+      const int k0 = j * BK;
+      if (k0 + BK > t) {  // ragged last tile: zero-filled keys -> masked
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int col = k0 + 8 * i + 2 * tq;
+          if (col >= t) sc[4 * i] = sc[4 * i + 2] = MASKED;
+          if (col + 1 >= t) sc[4 * i + 1] = sc[4 * i + 3] = MASKED;
+        }
+      }
+
+      // online softmax: new row max over the quad that shares a row
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+      }
+      const float sc0 = exp2_approx((m0 - mx0) * LOG2E);
+      const float sc1 = exp2_approx((m1 - mx1) * LOG2E);
+      m0 = mx0;
+      m1 = mx1;
+      const float nb0 = -mx0 * LOG2E, nb1 = -mx1 * LOG2E;
+      l0 *= sc0;
+      l1 *= sc1;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[4 * i] *= sc0;
+        acc[4 * i + 1] *= sc0;
+        acc[4 * i + 2] *= sc1;
+        acc[4 * i + 3] *= sc1;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        sc[4 * i] = exp2_approx(fmaf(sc[4 * i], LOG2E, nb0));
+        sc[4 * i + 1] = exp2_approx(fmaf(sc[4 * i + 1], LOG2E, nb0));
+        sc[4 * i + 2] = exp2_approx(fmaf(sc[4 * i + 2], LOG2E, nb1));
+        sc[4 * i + 3] = exp2_approx(fmaf(sc[4 * i + 3], LOG2E, nb1));
+        l0 += sc[4 * i] + sc[4 * i + 1];
+        l1 += sc[4 * i + 2] + sc[4 * i + 3];
+      }
+      uint32_t pa[32];
+      acc_to_a<128>(pa, sc);
+
+      // O += P V: 8 k-steps of 16 keys, V MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_m64n64_rs(acc, &pa[4 * kk], desc_b128(vs + kk * 2048));
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
     }
 
-    // online softmax: new row max over the quad that shares a row
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
 #pragma unroll
     for (int sh = 1; sh <= 2; sh <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+      l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
     }
-    const float sc0 = expf(m0 - mx0), sc1 = expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= sc0;
-    l1 *= sc1;
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    uint32_t* o32 = reinterpret_cast<uint32_t*>(o + (size_t)bh * t * HD);
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      acc[dt][0] *= sc0;
-      acc[dt][1] *= sc0;
-      acc[dt][2] *= sc1;
-      acc[dt][3] *= sc1;
+    for (int i = 0; i < 8; ++i) {
+      const int col = 8 * i + 2 * tq;
+      if (r0 < t)
+        o32[((size_t)r0 * HD + col) >> 1] =
+            pack_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+      if (r1 < t)
+        o32[((size_t)r1 * HD + col) >> 1] =
+            pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
     }
-
-    // P in registers: the S fragments of n-tiles 2kk, 2kk+1 are exactly the
-    // A fragment of k-step kk of P.V
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = expf(s[nt][0] - m0), p1 = expf(s[nt][1] - m0);
-      const float p2 = expf(s[nt][2] - m1), p3 = expf(s[nt][3] - m1);
-      l0 += p0 + p1;
-      l1 += p2 + p3;
-      pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+    if (lse != nullptr && tq == 0) {
+      if (r0 < t) lse[(size_t)bh * t + r0] = m0 + logf(l0);
+      if (r1 < t) lse[(size_t)bh * t + r1] = m1 + logf(l1);
     }
-
-    // O += P V: B fragment (k = key, n = head dim) gathers two key rows
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      const uint16_t* vcol = &vs[(tig * 2) * LDS + dt * 8 + g];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint16_t* vp = vcol + kk * 16 * LDS;
-        const uint32_t b0 = (uint32_t)vp[0] | ((uint32_t)vp[LDS] << 16);
-        const uint32_t b1 =
-            (uint32_t)vp[8 * LDS] | ((uint32_t)vp[9 * LDS] << 16);
-        mma_bf16_16816(acc[dt], pa[kk], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int sh = 1; sh <= 2; sh <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
-  }
-  uint32_t* o32 = reinterpret_cast<uint32_t*>(o + base);
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int c = dt * 8 + tig * 2;
-    if (r0 < t) o32[(r0 * HD + c) >> 1] = pack_bf16(acc[dt][0] / l0, acc[dt][1] / l0);
-    if (r1 < t) o32[(r1 * HD + c) >> 1] = pack_bf16(acc[dt][2] / l1, acc[dt][3] / l1);
   }
 }
 
@@ -204,7 +235,8 @@ constexpr int FK = 32;   // keys per shared-memory tile
 
 __global__ void __launch_bounds__(128)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int t) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int t) {
   __shared__ __align__(16) float ks[FK * HD];
   __shared__ __align__(16) float vs[FK * HD];
 
@@ -289,32 +321,48 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       x.w = acc[d4 * 4 + 3] / l;
       *reinterpret_cast<float4*>(o + base + (size_t)row * HD + d4 * 4) = x;
     }
+    if (lse != nullptr) lse[(size_t)blockIdx.y * t + row] = m + logf(l);
   }
 }
 
 }  // namespace
 
-// q, k, v, out: contiguous (bh, t, head_dim) on `device`; dtype 0 = float32,
-// 1 = bfloat16. Launches on `stream` and returns the launch's cudaError_t
-// (0 on success); it neither allocates nor synchronises.
+// q, k, v, out: contiguous (bh, t, head_dim) on `device`; lse: fp32 (bh, t),
+// written only when not null. dtype 0 = float32, 1 = bfloat16. Launches on
+// `stream` and returns the launch's cudaError_t (0 on success); it neither
+// allocates nor synchronises.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* out, int bh, int t, int head_dim,
-                              int dtype, int device, void* stream) {
+                              void* out, void* lse, int bh, int t,
+                              int head_dim, int dtype, int device,
+                              void* stream) {
   if (head_dim != HD || t <= 0 || bh <= 0 || bh > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  float* lp = static_cast<float*>(lse);
   if (dtype == 1) {
+    static bool smem_set[64] = {};
+    if (device < 0 || device >= 64) return (int)cudaErrorInvalidValue;
+    if (!smem_set[device]) {
+      err = cudaFuncSetAttribute(attn_fwd_bf16_sm90,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 SMEM_BYTES);
+      if (err != cudaSuccess) return (int)err;
+      smem_set[device] = true;
+    }
+    CUtensorMap qm, km, vm;
+    if (!map_rows(&qm, q, true, bh, t, BQ) || !map_rows(&km, k, true, bh, t, BK) ||
+        !map_rows(&vm, v, true, bh, t, BK))
+      return (int)cudaErrorInvalidValue;
     dim3 grid((t + BQ - 1) / BQ, bh);
-    attn_fwd_bf16<<<grid, 128, 0, st>>>(
-        static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-        static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), t);
+    attn_fwd_bf16_sm90<<<grid, THREADS, SMEM_BYTES, st>>>(
+        qm, km, vm, static_cast<uint16_t*>(out), lp, t);
   } else if (dtype == 0) {
     dim3 grid((t + FQ - 1) / FQ, bh);
     attn_fwd_f32<<<grid, FQ, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), t);
+        static_cast<const float*>(v), static_cast<float*>(out), lp, t);
   } else {
     return (int)cudaErrorInvalidValue;
   }
