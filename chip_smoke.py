@@ -20,13 +20,19 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      FlashMHA end to end against autograd through the plain forward in
      fp32;
   4. beam ancestry attention vs its plain version at beam 5 x batch 2,
-     20 heads, cache lengths 128 and 448, bf16 and fp32;
+     20 heads, cache lengths 128 and 448, pos 0, 1, mid and last, bf16 and
+     fp32 on uniform ancestors; then on a beam search's own ancestry map
+     (beams share prefixes), and one launch captured in a CUDA graph with
+     pos in a device int32, replayed at three positions;
   5. the candidate CTC-psi gather + dot vs its plain version at the turbo
      vocab (51866), 375 CTC frames, 10 hypotheses x 512 candidate slots,
      fp32 and bf16 posteriors from blank-dominant logits (so every frame
-     weighs in each sum), and the psi it feeds against the CPU path;
+     weighs in each sum), the psi it feeds against the CPU path, and one
+     call captured in a CUDA graph and replayed on new weights;
      phases 4 and 5 time each call with CUDA events and, apart, the device
-     time of its kernels with torch.profiler;
+     time of its kernels with torch.profiler, and print the main shape's
+     device time, share of the bound and per-call time beside those of the
+     kernels' first design;
   5b. the two KV-cache reorder kernels ('bhtd' and 'tbhd') vs their plain
      versions, bit for bit, in bf16 and fp32, at the beam step's cache
      (4, 10, 20, 128, 64), at T 448 and at Bb 15 (batch 3 x 5), with source
@@ -119,6 +125,13 @@ BEAMS, AUDIO_ROWS = 5, 2
 ANC_T = (128, 448)               # generation_max_length 128; the model's max
 ANC_TOLS = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
 ANC_MAIN = (448, 224, torch.bfloat16)  # mid-way through a full-length decode
+ANC_REPLAY = (3, 224, 447)       # device positions of the graph replay
+# the beam kernels' numbers in their first design (a block of 8 warps per
+# (hypothesis, head), a warp per key; a warp walking 2 candidate rows),
+# measured by this script on an H100 80GB HBM3 at 700 W (PERF.md), printed
+# beside this run's
+FIRST_DESIGN = {"ancestry_attn": "0.0217 ms, per call 0.052-0.085 ms",
+                "psi_gather_dot": "0.0047-0.0048 ms, per call 0.048-0.107 ms"}
 # CTC psi: the posterior has 375 frames (two stride-2 convs after the
 # encoder); fp32 sums in another order
 CTC_T, PSI_TOL = 375, 2e-5
@@ -388,33 +401,107 @@ def phase_flash_bwd(dev) -> dict:
     return main
 
 
+def beam_hist(seed: int, t: int, dev) -> torch.Tensor:
+    """(10, T) int32 ancestry map as a beam search of batch 2 x 5 beams
+    builds it (ops/beam_attention.py::beam_search_history): beams share
+    prefixes."""
+    import numpy as np
+    from ts_asr_whisper_tpu_torch.ops.beam_attention import \
+        beam_search_history
+
+    return torch.from_numpy(beam_search_history(
+        np.random.default_rng(seed), AUDIO_ROWS, BEAMS, t)).to(dev)
+
+
+def ancestry_inputs(dev, t: int, dt, gen, hist=None) -> list:
+    """q/k_new/v_new (10, 20, 1, 64), one layer's cache (10, 20, T, 64) in
+    ``dt`` and hist (10, T) int32: drawn uniformly, or as given."""
+    bb, h = AUDIO_ROWS * BEAMS, TURBO["decoder_attention_heads"]
+    q = torch.randn(bb, h, 1, 64, device=dev, generator=gen) / 8
+    k_new, v_new = (torch.randn(bb, h, 1, 64, device=dev, generator=gen)
+                    for _ in range(2))
+    ck, cv = (torch.randn(bb, h, t, 64, device=dev, generator=gen)
+              for _ in range(2))
+    if hist is None:
+        hist = torch.randint(0, BEAMS, (bb, t), device=dev, generator=gen,
+                             dtype=torch.int32)
+    return [x.to(dt) for x in (q, k_new, v_new, ck, cv)] + [hist]
+
+
+def ancestry_bound(args, pos: int) -> dict:
+    """The K/V rows before pos of one layer's cache, the new K/V, q and out,
+    the ancestor rows; ~1 FLOP per byte."""
+    bb, h, _, hd = args[0].shape
+    item = args[0].element_size()
+    nbytes = (2 * bb * h * pos * hd * item + 4 * bb * h * hd * item
+              + args[5].numel() * 4)
+    return bound(4 * bb * h * (pos + 1) * hd, nbytes, args[0].dtype)
+
+
+def check_ancestry(args, pos, tag: str) -> float:
+    """The kernel against its plain version on ``args`` at ``pos`` (an int
+    or a device int32); returns the max abs error, raises past ANC_TOLS."""
+    from ts_asr_whisper_tpu_torch.ops import beam_attention as BA
+
+    out = BA.ancestry_attention(*args, pos, BEAMS)
+    ref = BA.ancestry_attention_reference(*args, pos, BEAMS)
+    torch.cuda.synchronize()
+    dt = args[0].dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    atol, rtol = ANC_TOLS[dt]
+    if out.dtype != dt or not torch.allclose(out.float(), ref.float(),
+                                             atol=atol, rtol=rtol):
+        raise AssertionError(f"ancestry kernel disagrees: {tag} "
+                             f"(max_abs_err {err:.3e})")
+    return err
+
+
+def ancestry_graph_replay(args, positions) -> float:
+    """One ancestry launch captured in a CUDA graph with pos in a device
+    int32, replayed at each of ``positions`` against the plain version;
+    returns the max abs error."""
+    from ts_asr_whisper_tpu_torch.ops import beam_attention as BA
+
+    pos = torch.zeros(1, dtype=torch.int32, device=args[0].device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        BA.ancestry_attention(*args, pos, BEAMS)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = BA.ancestry_attention(*args, pos, BEAMS)
+    atol, rtol = ANC_TOLS[args[0].dtype]
+    worst = 0.0
+    for p in positions:
+        pos.fill_(p)
+        graph.replay()
+        ref = BA.ancestry_attention_reference(*args, p, BEAMS)
+        torch.cuda.synchronize()
+        worst = max(worst, (out.float() - ref.float()).abs().max().item())
+        if not torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol):
+            raise AssertionError(f"ancestry graph replay disagrees at pos {p}")
+    del graph
+    return worst
+
+
 def phase_ancestry(dev) -> dict:
     """Ancestry beam attention vs its plain version at the beam step's
     shapes: q/k_new/v_new (10, 20, 1, 64), one layer's cache (10, 20, T, 64),
-    random group-local ancestors; L2 is warm (one layer's K/V <= 11.5 MB)."""
+    uniform group-local ancestors at every class of pos, then a beam
+    search's own ancestry map, then one launch captured in a CUDA graph and
+    replayed at three device positions; L2 is warm (one layer's K/V <= 11.5
+    MB)."""
     from ts_asr_whisper_tpu_torch.ops import beam_attention as BA
 
     gen = torch.Generator(device=dev).manual_seed(4)
     bb, h = AUDIO_ROWS * BEAMS, TURBO["decoder_attention_heads"]
     main = {}
     for t in ANC_T:
-        for pos in (1, t // 2, t - 1):
+        for pos in (0, 1, t // 2, t - 1):
             for dt in (torch.bfloat16, torch.float32):
-                q = torch.randn(bb, h, 1, 64, device=dev, generator=gen) / 8
-                k_new, v_new = (torch.randn(bb, h, 1, 64, device=dev,
-                                            generator=gen) for _ in range(2))
-                ck, cv = (torch.randn(bb, h, t, 64, device=dev,
-                                      generator=gen) for _ in range(2))
-                hist = torch.randint(0, BEAMS, (bb, t), device=dev,
-                                     generator=gen, dtype=torch.int32)
-                args = [x.to(dt) for x in (q, k_new, v_new, ck, cv)] + [hist]
-                out = BA.ancestry_attention(*args, pos, BEAMS)
-                ref = BA.ancestry_attention_reference(*args, pos, BEAMS)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                atol, rtol = ANC_TOLS[dt]
-                ok = out.dtype == dt and torch.allclose(
-                    out.float(), ref.float(), atol=atol, rtol=rtol)
+                args = ancestry_inputs(dev, t, dt, gen)
+                err = check_ancestry(args, pos, f"T {t} pos {pos} {dt}")
                 ms = median_ms(lambda: BA.ancestry_attention(*args, pos,
                                                              BEAMS), reps=20)
                 plain_ms = median_ms(
@@ -424,42 +511,55 @@ def phase_ancestry(dev) -> dict:
                     lambda: BA.ancestry_attention(*args, pos, BEAMS))
                 plain_dev_ms = device_ms(
                     lambda: BA.ancestry_attention_reference(*args, pos, BEAMS))
+                atol, rtol = ANC_TOLS[dt]
                 log(f"[ancestry] Bb {bb} H {h} T {t} pos {pos} "
                     f"{str(dt)[6:]}: max_abs_err {err:.3e} (atol {atol}, "
                     f"rtol {rtol}) per call: kernel {ms:.4f} ms plain "
                     f"{plain_ms:.4f} ms; device: kernel {fmt_ms(dev_ms)} "
                     f"plain {fmt_ms(plain_dev_ms)}")
-                if not ok:
-                    raise AssertionError(
-                        f"ancestry kernel disagrees at T {t} pos {pos} {dt}")
                 if (t, pos, dt) == ANC_MAIN:
-                    # the K/V rows before pos of one layer's cache, the new
-                    # K/V, q and out, the ancestor rows; ~1 FLOP per byte
-                    item = args[0].element_size()
-                    nbytes = (2 * bb * h * pos * 64 * item
-                              + 4 * bb * h * 64 * item + bb * t * 4)
-                    flop = 4 * bb * h * (pos + 1) * 64
                     main = {"max_abs_err": err, "ms": ms,
                             "plain_ms": plain_ms, "device_ms": dev_ms,
                             "plain_device_ms": plain_dev_ms,
-                            **bound(flop, nbytes, dt), "library_ms": None}
+                            **ancestry_bound(args, pos), "library_ms": None}
+    # a beam search's own ancestry map: beams share prefixes, so the rows a
+    # (hypothesis, head) reads come from few slabs
+    t, pos, dt = ANC_MAIN
+    for d in (torch.bfloat16, torch.float32):
+        args = ancestry_inputs(dev, t, d, gen, hist=beam_hist(4, t, dev))
+        errs = [check_ancestry(args, p, f"beam history T {t} pos {p} {d}")
+                for p in (0, 1, pos, t - 1)]
+        replay = ancestry_graph_replay(args, ANC_REPLAY)
+        log(f"[ancestry] beam-search history, T {t} {str(d)[6:]}: "
+            f"max_abs_err {max(errs):.3e} at pos 0, 1, {pos}, {t - 1}; one "
+            f"launch captured in a CUDA graph, replayed at device pos "
+            f"{', '.join(map(str, ANC_REPLAY))}: max_abs_err {replay:.3e}")
+        if d == dt:
+            hist_dev_ms = device_ms(
+                lambda: BA.ancestry_attention(*args, pos, BEAMS))
+            main["beam_history_device_ms"] = hist_dev_ms
+            main["graph_replay_max_abs_err"] = replay
+    dev_ms = main["device_ms"]
+    log(f"[ancestry] main shape Bb {bb} H {h} T {t} pos {pos} bf16: device "
+        f"{fmt_ms(dev_ms)} ({share(main['bound_ms'], dev_ms)} of the bound "
+        f"{main['bound_ms']:.4f} ms, {main['bound_by']}), "
+        f"{fmt_ms(main['beam_history_device_ms'])} on a beam-search history;"
+        f" per call {main['ms']:.4f} ms; the first design: device "
+        f"{FIRST_DESIGN['ancestry_attn']}")
     return main
 
 
-def phase_psi(dev) -> dict:
-    """The psi gather + dot vs its plain version at the beam step's shapes:
-    posterior (2, 51867, 375) from blank-dominant CTC logits, 10 hypotheses
-    x 512 candidate slots from the rescorer's own candidate rule on
-    tie-heavy scores, weights w that span the frames. The sums are of
-    positive terms, so they are held at a relative 2e-5 (a fixed atol would
-    pass anything at sums of ~1e-6). Then the psi values it feeds
-    (ctc_psi_candidates) on the card vs the CPU's plain path: same
-    sparsity, live values at 2e-5. L2 is warm for the timings."""
+def psi_inputs(dev) -> dict:
+    """The psi gather + dot's inputs at the beam step's shapes: the
+    posterior's log-probs (2, 51867, 375) from blank-dominant CTC logits,
+    10 hypotheses x 512 candidate slots from the rescorer's own candidate
+    rule on tie-heavy scores, int32 audio rows (as init_ctc_state makes
+    them), weights w that span the frames, and the rest of the prefix state
+    ctc_psi_candidates takes."""
     from ts_asr_whisper_tpu_torch.decoding.ctc_rescorer import candidate_mask
     from ts_asr_whisper_tpu_torch.models.config import DiCoWConfig
     from ts_asr_whisper_tpu_torch.ops import psi_gather as PG
-    from ts_asr_whisper_tpu_torch.ops.ctc_prefix import (LOG_ZERO,
-                                                         initial_ctc_state,
+    from ts_asr_whisper_tpu_torch.ops.ctc_prefix import (initial_ctc_state,
                                                          psi_weights)
 
     cfg = DiCoWConfig(**TURBO)
@@ -475,7 +575,7 @@ def phase_psi(dev) -> dict:
     logits[..., blank] += BLANK_LOGIT
     logp = torch.log_softmax(logits, dim=-1)
     del logits
-    audio_idx = torch.arange(bb, device=dev) // BEAMS
+    audio_idx = torch.arange(bb, dtype=torch.int32, device=dev) // BEAMS
     r0, _ = initial_ctc_state(logp, blank)
     r = r0[audio_idx]
     r = r + 0.1 * torch.randn(r.shape, device=dev, generator=gen)
@@ -491,31 +591,76 @@ def phase_psi(dev) -> dict:
     if popcount > k_pad:
         raise AssertionError(f"{popcount} candidates > {k_pad} slots")
     logp_vt = logp.transpose(1, 2).contiguous()
-    x_last = logp_vt[audio_idx, last]
-    ids = PG.extract_topk_ids(mask, k_pad)
+    del logp
     w, _, _ = psi_weights(r, decoded_len)
     span = int((w > 1e-3 * w.amax(dim=1, keepdim=True)).sum(dim=1).min())
     if span < W_SPAN:
         raise AssertionError(f"psi weights span {span} frames < {W_SPAN}: "
                              "the sums would not test every frame")
-    cpu = [x.cpu() for x in (mask, audio_idx, x_last, r, decoded_len, last)]
+    return {"logp_vt": logp_vt, "mask": mask, "audio_idx": audio_idx,
+            "x_last": logp_vt[audio_idx, last], "r": r,
+            "decoded_len": decoded_len, "last": last, "eos": eos,
+            "k_pad": k_pad, "ids": PG.extract_topk_ids(mask, k_pad), "w": w,
+            "popcount": popcount, "span": span, "v_dec": v_dec}
+
+
+def psi_bound(p_vt, ids, w) -> dict:
+    """The gathered candidate rows (each read once), w, the sums."""
+    nbytes = (ids.numel() * CTC_T * p_vt.element_size() + w.numel() * 4
+              + ids.numel() * 4)
+    return bound(2 * ids.numel() * CTC_T, nbytes, p_vt.dtype)
+
+
+def phase_psi(dev) -> dict:
+    """The psi gather + dot vs its plain version at the beam step's shapes
+    (psi_inputs). The sums are of positive terms, so they are held at a
+    relative 2e-5 (a fixed atol would pass anything at sums of ~1e-6). Then
+    the psi values it feeds (ctc_psi_candidates) on the card vs the CPU's
+    plain path: same sparsity, live values at 2e-5. Then one call captured
+    in a CUDA graph and replayed on new weights. L2 is warm for the
+    timings."""
+    from ts_asr_whisper_tpu_torch.ops import psi_gather as PG
+    from ts_asr_whisper_tpu_torch.ops.ctc_prefix import LOG_ZERO
+
+    c = psi_inputs(dev)
+    audio_idx, ids, w, eos, k_pad = (c[k] for k in ("audio_idx", "ids", "w",
+                                                     "eos", "k_pad"))
+    state = [c[k] for k in ("mask", "audio_idx", "x_last", "r",
+                            "decoded_len", "last")]
+    cpu = [x.cpu() for x in state]
     main = {}
     for dt in (torch.float32, torch.bfloat16):
-        p_vt = PG.padded_posterior(torch.exp(logp_vt), dt)
+        p_vt = PG.padded_posterior(torch.exp(c["logp_vt"]), dt)
         vals = PG.psi_gather_dot(p_vt, audio_idx, ids, w)
         ref = PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w)
         torch.cuda.synchronize()
         err = (vals - ref).abs().max().item()
         rel = ((vals - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
         ok = torch.allclose(vals, ref, atol=0.0, rtol=PSI_TOL)
-        psi = PG.ctc_psi_candidates(p_vt, mask, audio_idx, x_last, r,
-                                    decoded_len, last, eos, k_pad).cpu()
+        psi = PG.ctc_psi_candidates(p_vt, *state, eos, k_pad).cpu()
         psi_ref = PG.ctc_psi_candidates(p_vt.cpu(), *cpu, eos, k_pad)
         live = psi_ref > LOG_ZERO / 2
         same_live = torch.equal(psi > LOG_ZERO / 2, live)
         psi_err = (psi[live] - psi_ref[live]).abs().max().item()
         ok = ok and same_live and torch.allclose(
             psi[live], psi_ref[live], atol=PSI_TOL, rtol=PSI_TOL)
+        # one call captured in a CUDA graph, replayed on new weights
+        w_in = w.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            PG.psi_gather_dot(p_vt, audio_idx, ids, w_in)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = PG.psi_gather_dot(p_vt, audio_idx, ids, w_in)
+        w_in.copy_(w.flip(0))
+        graph.replay()
+        replay_ref = PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w_in)
+        torch.cuda.synchronize()
+        ok = ok and torch.allclose(replayed, replay_ref, atol=0.0,
+                                   rtol=PSI_TOL)
+        del graph
         ms = median_ms(lambda: PG.psi_gather_dot(p_vt, audio_idx, ids, w),
                        reps=20)
         plain_ms = median_ms(
@@ -524,28 +669,30 @@ def phase_psi(dev) -> dict:
         dev_ms = device_ms(lambda: PG.psi_gather_dot(p_vt, audio_idx, ids, w))
         plain_dev_ms = device_ms(
             lambda: PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w))
-        log(f"[psi] P (2, {v_dec + 1}, {CTC_T}) {str(dt)[6:]}, ids "
-            f"{tuple(ids.shape)}, popcount <= {popcount}: sums max_abs_err "
-            f"{err:.3e} (sums {ref.min().item():.3e} to "
+        log(f"[psi] P (2, {c['v_dec'] + 1}, {CTC_T}) {str(dt)[6:]}, ids "
+            f"{tuple(ids.shape)}, popcount <= {c['popcount']}: sums "
+            f"max_abs_err {err:.3e} (sums {ref.min().item():.3e} to "
             f"{ref.max().item():.3e}, max rel err {rel:.3e}, rtol {PSI_TOL}; "
-            f"w spans >= {span} of {CTC_T} frames), live psi max_abs_err {psi_err:.3e} vs the CPU path "
-            f"({int(live.sum())} live, sparsity "
-            f"{'equal' if same_live else 'DIFFERS'}; atol/rtol {PSI_TOL}) "
-            f"per call: kernel {ms:.4f} ms plain {plain_ms:.4f} ms; device: "
+            f"w spans >= {c['span']} of {CTC_T} frames), live psi max_abs_err "
+            f"{psi_err:.3e} vs the CPU path ({int(live.sum())} live, sparsity "
+            f"{'equal' if same_live else 'DIFFERS'}; atol/rtol {PSI_TOL}); "
+            f"graph replay on new w {'agrees' if ok else 'DISAGREES'}; per "
+            f"call: kernel {ms:.4f} ms plain {plain_ms:.4f} ms; device: "
             f"kernel {fmt_ms(dev_ms)} plain {fmt_ms(plain_dev_ms)}")
         if not ok:
             raise AssertionError(f"psi kernel disagrees ({dt})")
         if dt == torch.float32:
-            # the gathered candidate rows (each read once), w, the sums
-            nbytes = (ids.numel() * CTC_T * p_vt.element_size()
-                      + w.numel() * 4 + vals.numel() * 4)
-            flop = 2 * ids.numel() * CTC_T
             main = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
                     "plain_ms": plain_ms, "device_ms": dev_ms,
                     "plain_device_ms": plain_dev_ms,
-                    **bound(flop, nbytes, dt), "library_ms": None}
+                    **psi_bound(p_vt, ids, w), "library_ms": None}
         del p_vt
-    del logp, logp_vt
+    log(f"[psi] main shape fp32: device {fmt_ms(main['device_ms'])} "
+        f"({share(main['bound_ms'], main['device_ms'])} of the bound "
+        f"{main['bound_ms']:.4f} ms, {main['bound_by']}); per call "
+        f"{main['ms']:.4f} ms; the first design: device "
+        f"{FIRST_DESIGN['psi_gather_dot']}")
+    del c
     torch.cuda.empty_cache()
     return main
 

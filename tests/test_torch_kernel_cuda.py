@@ -1,6 +1,10 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card: encoder flash attention forward and backward, beam ancestry attention,
-the candidate CTC-psi gather + dot and the two KV-cache reorder kernels.
+card: encoder flash attention forward and backward, beam ancestry attention
+(on a beam search's own ancestry map, at every class of pos, around the
+cluster size, at the longest cache it takes, and one launch captured in a
+CUDA graph and replayed at other positions), the candidate CTC-psi gather +
+dot (with NaN in the row padding, and captured and replayed on new inputs)
+and the two KV-cache reorder kernels.
 Skips without a GPU; run there with
 ``python -m pytest tests/test_torch_kernel_cuda.py -m cuda``."""
 
@@ -8,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from ts_asr_whisper_tpu_torch.kernels import launch_counts
+from ts_asr_whisper_tpu_torch.kernels import (DTYPE_CODES, ancestry_attn_lib,
+                                              launch_counts)
 from ts_asr_whisper_tpu_torch.ops import attention as A
 from ts_asr_whisper_tpu_torch.ops import beam_attention as BA
 from ts_asr_whisper_tpu_torch.ops import psi_gather as PG
@@ -162,17 +167,29 @@ def test_flash_mha_autograd_runs_both_kernels(cuda):
         torch.testing.assert_close(x.grad, r.grad, atol=2e-4, rtol=2e-4)
 
 
-def _ancestry_inputs(bb, n, h, t, dtype, device, seed=0):
+def _ancestry_inputs(bb, n, h, t, dtype, device, seed=0, hist=None):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((bb, h, 1, 64)).astype(np.float32) * 0.125
     kn, vn = (rng.standard_normal((bb, h, 1, 64)).astype(np.float32)
               for _ in range(2))
     ck, cv = (rng.standard_normal((bb, h, t, 64)).astype(np.float32)
               for _ in range(2))
-    hist = rng.integers(0, n, size=(bb, t)).astype(np.int32)
+    if hist is None:
+        hist = rng.integers(0, n, size=(bb, t)).astype(np.int32)
     out = [torch.from_numpy(x).to(device=device, dtype=dtype)
            for x in (q, kn, vn, ck, cv)]
     return out + [torch.from_numpy(hist).to(device)]
+
+
+def _check_ancestry(args, pos, n, dtype):
+    before = launch_counts["ancestry_attn"]
+    out = BA.ancestry_attention(*args, pos=pos, n=n)
+    torch.cuda.synchronize()
+    assert launch_counts["ancestry_attn"] == before + 1
+    ref = BA.ancestry_attention_reference(*args, pos=pos, n=n)
+    assert out.dtype == dtype
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -180,14 +197,99 @@ def _ancestry_inputs(bb, n, h, t, dtype, device, seed=0):
                                    (448, 1), (448, 224), (448, 447)])
 def test_ancestry_kernel_matches_plain(cuda, dtype, t, pos):
     args = _ancestry_inputs(10, 5, 20, t, dtype, cuda, seed=t + pos)
+    _check_ancestry(args, pos, 5, dtype)
+
+
+POS_CLASSES = {"0": lambda t: 0, "1": lambda t: min(1, t - 1),
+               "mid": lambda t: t // 2, "last": lambda t: t - 1}
+
+
+@pytest.mark.parametrize("pos_class", sorted(POS_CLASSES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 127, 129, 447, 448])
+def test_ancestry_kernel_on_beam_history(cuda, t, dtype, pos_class):
+    """A beam search's own ancestry map (beams share prefixes) at cache
+    lengths whose T - 1 positions do not divide evenly over the cluster."""
+    hist = BA.beam_search_history(np.random.default_rng(t), 2, 5, t)
+    args = _ancestry_inputs(10, 5, 20, t, dtype, cuda, seed=t + 1, hist=hist)
+    _check_ancestry(args, POS_CLASSES[pos_class](t), 5, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ancestry_kernel_at_batch_three(cuda, dtype):
+    hist = BA.beam_search_history(np.random.default_rng(15), 3, 5, 448)
+    args = _ancestry_inputs(15, 5, 20, 448, dtype, cuda, seed=15, hist=hist)
+    for pos in (0, 5, 300, 447):
+        _check_ancestry(args, pos, 5, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ancestry_kernel_around_the_cluster_size(cuda, dtype):
+    """Positions fewer than, equal to, one more than and many more than the
+    CTAs of a cluster (4 in bf16, 8 in fp32)."""
+    hist = BA.beam_search_history(np.random.default_rng(8), 2, 5, 200)
+    args = _ancestry_inputs(10, 5, 4, 200, dtype, cuda, seed=8, hist=hist)
+    for pos in (0, 3, 4, 5, 8, 9, 199):
+        _check_ancestry(args, pos, 5, dtype)
+
+
+@pytest.mark.parametrize("dtype,t_max", [(torch.float32, 3169),
+                                         (torch.bfloat16, 3149)])
+def test_ancestry_kernel_takes_the_longest_cache_it_holds(cuda, dtype,
+                                                          t_max):
+    """The kernel's own limit (a CTA's slice of K and V in shared memory):
+    it runs at T = t_max, and one more position raises with the limit."""
+    assert ancestry_attn_lib().ancestry_attn_max_len(DTYPE_CODES[dtype]) \
+        == t_max
+    hist = BA.beam_search_history(np.random.default_rng(3), 2, 5, t_max)
+    args = _ancestry_inputs(10, 5, 2, t_max, dtype, cuda, seed=3, hist=hist)
+    for pos in (1, t_max - 1):
+        _check_ancestry(args, pos, 5, dtype)
+    args = _ancestry_inputs(10, 5, 2, t_max + 1, dtype, cuda, seed=3)
     before = launch_counts["ancestry_attn"]
-    out = BA.ancestry_attention(*args, pos=pos, n=5)
-    torch.cuda.synchronize()
-    assert launch_counts["ancestry_attn"] == before + 1
-    ref = BA.ancestry_attention_reference(*args, pos=pos, n=5)
-    assert out.dtype == dtype
+    with pytest.raises(ValueError, match=f"T={t_max + 1} > {t_max}"):
+        BA.ancestry_attention(*args, pos=5, n=5)
+    assert launch_counts["ancestry_attn"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ancestry_kernel_replays_at_device_positions(cuda, dtype):
+    """One launch captured in a CUDA graph with pos in a device int32 gives
+    the plain version's output at three other positions on replay."""
+    hist = BA.beam_search_history(np.random.default_rng(7), 2, 5, 448)
+    args = _ancestry_inputs(10, 5, 20, 448, dtype, cuda, seed=7, hist=hist)
+    pos = torch.tensor([100], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        BA.ancestry_attention(*args, pos=pos, n=5)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = BA.ancestry_attention(*args, pos=pos, n=5)
     atol, rtol = TOLS[dtype]
-    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    for p in (3, 224, 447):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = BA.ancestry_attention_reference(*args, pos=p, n=5)
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_ancestry_kernel_rejects_what_it_cannot_take(cuda):
+    args = _ancestry_inputs(10, 5, 2, 16, torch.bfloat16, cuda)
+    before = launch_counts["ancestry_attn"]
+    with pytest.raises(ValueError, match="pos"):
+        BA.ancestry_attention(*args, pos=16, n=5)
+    with pytest.raises(ValueError, match="pos tensor"):
+        BA.ancestry_attention(*args, pos=torch.tensor([3], device=cuda), n=5)
+    with pytest.raises(ValueError, match="dtypes"):
+        BA.ancestry_attention(*args[:3], args[3].float(), *args[4:], pos=3,
+                              n=5)
+    with pytest.raises(ValueError, match="n 3"):
+        BA.ancestry_attention(*args, pos=3, n=3)
+    assert launch_counts["ancestry_attn"] == before
 
 
 def _psi_inputs(device, p_dtype, b_audio=2, v=51866, t=375, bb=10, k=512,
@@ -214,6 +316,62 @@ def test_psi_kernel_matches_plain(cuda, p_dtype):
     ref = PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w)
     # fp32 sums of ~375 products in another order
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [375, 376, 1500])
+@pytest.mark.parametrize("k", [500, 513])
+def test_psi_kernel_at_other_shapes(cuda, k, t, p_dtype):
+    """Slot counts that leave a warp's rows partly empty, rows that fill
+    their stride (T 376) or take several passes (T 1500)."""
+    p_vt, audio_idx, ids, w = _psi_inputs(cuda, p_dtype, v=4000, t=t, k=k,
+                                          seed=k + t)
+    out = PG.psi_gather_dot(p_vt, audio_idx, ids, w)
+    torch.cuda.synchronize()
+    ref = PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [369, 375])
+def test_psi_kernel_ignores_the_row_padding(cuda, t, p_dtype):
+    """The kernel reads a row's last 16-byte vector whole, padding included:
+    NaN there (a posterior in a buffer that is not zero-filled) must not
+    reach the sums. T 369 leaves 7 padding elements, 375 one."""
+    p_vt, audio_idx, ids, w = _psi_inputs(cuda, p_dtype, v=4000, t=t)
+    ld = -(-t // PG.ROW_ALIGN) * PG.ROW_ALIGN
+    full = torch.full((*p_vt.shape[:2], ld), float("nan"), dtype=p_dtype,
+                      device=cuda)
+    full[..., :t] = p_vt
+    nan_padded = full[..., :t]
+    out = PG.psi_gather_dot(nan_padded, audio_idx, ids, w)
+    torch.cuda.synchronize()
+    ref = PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_psi_kernel_replays_on_new_inputs(cuda):
+    """A call captured in a CUDA graph reads its inputs on replay: new ids,
+    weights and audio rows written in place give the plain version's sums."""
+    p_vt, audio_idx, ids, w = _psi_inputs(cuda, torch.float32, v=4000)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        PG.psi_gather_dot(p_vt, audio_idx, ids, w)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = PG.psi_gather_dot(p_vt, audio_idx, ids, w)
+    for seed in (1, 2):
+        _, a2, i2, w2 = _psi_inputs(cuda, torch.float32, v=4000, seed=seed)
+        audio_idx.copy_(a2.flip(0))
+        ids.copy_(i2)
+        w.copy_(w2)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w)
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("p_dtype", [torch.float32, torch.bfloat16])

@@ -43,7 +43,7 @@ class CTCState(NamedTuple):
     #                                 16-byte aligned, for the gather kernel
     #                                 ('gather' only; the JAX package's p4
     #                                 without its TPU time fold)
-    audio_idx: torch.Tensor         # (Bb,) hypothesis -> audio row
+    audio_idx: torch.Tensor         # (Bb,) int32 hypothesis -> audio row
     r_prev: torch.Tensor            # (Bb, T, 2)
     score_prev: torch.Tensor        # (Bb,)
     cand_ids: torch.Tensor          # (Bb, K) ids (n=1) or (Bb, V_dec) mask
@@ -79,7 +79,9 @@ def init_ctc_state(enc_logits: torch.Tensor, blank: int,
         logp[..., pairs[0]] = logp[..., pairs[1]]
     b_audio = logp.shape[0]
     bb = b_audio * num_beams
-    audio_idx = torch.arange(bb, device=dev) // num_beams
+    # int32 once here: the psi kernel takes it as it is, with no cast on the
+    # card per beam step
+    audio_idx = torch.arange(bb, dtype=torch.int32, device=dev) // num_beams
     r0, _ = initial_ctc_state(logp, blank)
     v_dec = logp.shape[-1] - 1  # decoder vocab (ctc vocab minus blank)
     logp_vt = logp.transpose(1, 2).contiguous()

@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 # the ``dtype`` argument of every C entry point
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # kernel name -> the csrc/<source>.cu that holds it
@@ -39,7 +39,8 @@ KERNEL_SOURCES: Dict[str, str] = {
 # kernel name -> number of launches; each wrapper adds one where it launches
 # its kernel, and nowhere else
 launch_counts: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
-# name -> {"seconds": build time (0.0 when reused), "log": nvcc output}
+# name (then its defines, if any) -> {"seconds": build time (0.0 when
+# reused), "log": nvcc output}
 build_info: Dict[str, dict] = {}
 
 
@@ -54,6 +55,13 @@ def route(x, op: str) -> str:
     raise RuntimeError(f"{op}: no implementation for device {kind}")
 
 
+def raw_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device`` (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without making
+    a Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index or 0)
+
+
 def find_nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
                  "/usr/local/cuda"):
@@ -66,31 +74,34 @@ def find_nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple = ()) -> Path:
     """Compile ``csrc/<name>.cu`` into a shared library unless a build of the
-    same source (and the same ``csrc/*.cuh`` headers) already exists; return
-    the library's path."""
+    same source (and the same ``csrc/*.cuh`` headers and ``defines``, extra
+    ``-D`` flags that only probes pass) already exists; return the library's
+    path."""
     src = CSRC / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *defines)
     # the shared headers count too: an edited header rebuilds every source
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib = out_dir / f"lib{name}.so"
+    key = " ".join((name, *defines))
     if lib.exists():
         # keep the record of a build made earlier in this process
-        build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+        build_info.setdefault(key, {"seconds": 0.0, "log": ""})
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n"
                            f"{proc.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
-    build_info[name] = {"seconds": time.perf_counter() - t0,
+    build_info[key] = {"seconds": time.perf_counter() - t0,
                         "log": proc.stdout + proc.stderr}
     return lib
 
@@ -111,24 +122,29 @@ def build_all(names) -> None:
 ENTRY_POINTS: Dict[str, Dict[str, tuple]] = {
     "flash_attn_fwd": {"flash_attn_fwd": (5, 5)},
     "flash_attn_bwd": {"flash_attn_bwd": (11, 5)},
-    "ancestry_attn": {"ancestry_attn": (7, 7)},
+    "ancestry_attn": {"ancestry_attn": (8, 6)},
     "psi_gather_dot": {"psi_gather_dot": (5, 8)},
     "kv_reorder": {"kv_reorder_bhtd": (3, 4), "kv_reorder_tbhd": (3, 4)}}
+# source -> C functions that take one int and return one: a build's limits
+QUERIES: Dict[str, tuple] = {"ancestry_attn": ("ancestry_attn_max_len",)}
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` and type its entry
-    points; cached per process."""
+    points; cached per process and ``defines``."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, defines))
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name, defines)))
             for fn_name, (n_ptrs, n_ints) in ENTRY_POINTS[name].items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = [ctypes.c_void_p] * n_ptrs \
                     + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            _libs[name] = lib
+            for fn_name in QUERIES.get(name, ()):
+                fn = getattr(lib, fn_name)
+                fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+            _libs[(name, defines)] = lib
         return lib
 
 

@@ -10,7 +10,9 @@ matmul it computes, per candidate row of the vocab-major posterior,
 
 in fp32 (``psi_gather_dot``). On a CUDA tensor that is the hand-written
 kernel kernels/csrc/psi_gather_dot.cu, which reads each candidate's T-row
-once and keeps nothing but the (Bb, K) sums; its plain PyTorch version,
+once and keeps nothing but the (Bb, K) sums; ``w`` stays fp32 for a bf16
+posterior, as in the JAX package's matmul path (its gather path rounds ``w``
+to bf16 first, psi_gather.py:175); its plain PyTorch version,
 ``psi_gather_dot_reference``, runs only for CPU tensors. The TPU module's
 time fold of the posterior (``fold_posterior`` / ``fold_weights``, a rule
 of TPU DMA tiling) has no counterpart: the kernel reads the unfolded rows.
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels import DTYPE_CODES, launch_counts, route
+from ..kernels import DTYPE_CODES, launch_counts, raw_stream, route
 from .ctc_prefix import LOG_ZERO, psi_match_scores, psi_weights
 
 ROW_ALIGN = 8  # elements: a padded row stride keeps rows 16-byte aligned
@@ -64,13 +66,15 @@ def psi_gather_dot(p_vt: torch.Tensor, audio_idx: torch.Tensor,
                    ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B_audio, V, T) posterior (fp32 or bf16, unit stride along T), (Bb,)
     audio rows, (Bb, K) candidate ids in [0, V), (Bb, T) fp32 weights ->
-    (Bb, K) fp32 sums. On the card the posterior's rows must start 16-byte
-    aligned, as ``padded_posterior`` stores them."""
+    (Bb, K) fp32 sums; ``w`` stays fp32 for a bf16 posterior. On the card
+    the posterior's rows must start 16-byte aligned, with a row stride of a
+    multiple of 8 elements, as ``padded_posterior`` stores them (the kernel
+    reads the padding after T whole and ignores it); int32 ids and audio
+    rows and a contiguous fp32 ``w`` reach the kernel without a copy."""
     if route(p_vt, "psi_gather_dot") == "plain":
         return psi_gather_dot_reference(p_vt, audio_idx, ids, w)
     from ..kernels import psi_gather_dot_lib
 
-    lib = psi_gather_dot_lib()
     b_audio, v, t = p_vt.shape
     bb, k = ids.shape
     if p_vt.dtype not in DTYPE_CODES:
@@ -80,6 +84,7 @@ def psi_gather_dot(p_vt: torch.Tensor, audio_idx: torch.Tensor,
     if p_vt.stride(2) != 1 or ld < t or p_vt.stride(0) != v * ld:
         raise ValueError(f"psi_gather_dot: posterior strides "
                          f"{p_vt.stride()} are not (V*ld, ld, 1)")
+    # rows 16-byte aligned, the last 16-byte vector inside the row stride
     if ld % ROW_ALIGN or p_vt.data_ptr() % 16:
         raise ValueError(f"psi_gather_dot: posterior rows are not 16-byte "
                          f"aligned (row stride {ld}); build it with "
@@ -88,19 +93,22 @@ def psi_gather_dot(p_vt: torch.Tensor, audio_idx: torch.Tensor,
         raise ValueError(f"psi_gather_dot: audio_idx {tuple(audio_idx.shape)}"
                          f" / w {tuple(w.shape)} do not match ids "
                          f"{tuple(ids.shape)} and T={t}")
-    for name, x in (("audio_idx", audio_idx), ("ids", ids), ("w", w)):
-        if x.device != p_vt.device:
-            raise ValueError(f"psi_gather_dot: {name} on {x.device}, "
-                             f"posterior on {p_vt.device}")
-    ids = ids.to(torch.int32).contiguous()
-    audio_idx = audio_idx.to(torch.int32).contiguous()
-    w = w.float().contiguous()
-    out = torch.empty(bb, k, dtype=torch.float32, device=p_vt.device)
-    err = lib.psi_gather_dot(
+    dev = p_vt.device
+    if not audio_idx.device == ids.device == w.device == dev:
+        raise ValueError(f"psi_gather_dot: audio_idx / ids / w on "
+                         f"{audio_idx.device} {ids.device} {w.device}, "
+                         f"posterior on {dev}")
+    if ids.dtype != torch.int32 or not ids.is_contiguous():
+        ids = ids.to(torch.int32).contiguous()
+    if audio_idx.dtype != torch.int32 or not audio_idx.is_contiguous():
+        audio_idx = audio_idx.to(torch.int32).contiguous()
+    if w.dtype != torch.float32 or not w.is_contiguous():
+        w = w.float().contiguous()
+    out = torch.empty(bb, k, dtype=torch.float32, device=dev)
+    err = psi_gather_dot_lib().psi_gather_dot(
         p_vt.data_ptr(), ids.data_ptr(), audio_idx.data_ptr(), w.data_ptr(),
         out.data_ptr(), bb, k, v, t, ld, b_audio, DTYPE_CODES[p_vt.dtype],
-        p_vt.device.index or 0,
-        torch.cuda.current_stream(p_vt.device).cuda_stream)
+        dev.index or 0, raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"psi_gather_dot launch failed: CUDA error {err}")
     launch_counts["psi_gather_dot"] += 1
