@@ -67,7 +67,33 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      the flash kernel in its 32 layers and 8 SCB cross-attentions;
  11. the same decode of 1 recording (2 rows) on the 'tbhd' cache:
      kv_reorder_tbhd twice per beam step, kv_reorder_bhtd never. The reorder
-     impl and the cache layout are restored afterwards.
+     impl and the cache layout are restored afterwards;
+ 12. the SE-DiCoW fine-tune (+train=se_dicow, 8 SCBs, self-enrollment)
+     through ModelTrainer at the same width: 8 rows of 30 s, 4
+     micro-batches of 4 in updates of 2 (one preheat, one base), every SCB
+     gate opened first (a fresh gate is 0 and would stop every SCB
+     gradient): the flash forward and backward in every encoder layer, SCB
+     and the CTC head; the preheat changing only preheat parameters, the
+     SCBs' k/v projections among them (their gradient comes only through
+     the SCB cross-attention's dk / dv); the flash forward and backward
+     against their plain versions on the run's own inputs of SCB 0's
+     cross-attention and of layer 0's self-attention over both streams;
+     the export decoded by se_dicow_greedy;
+ 13. encoder CTC pre-training (+pretrain=turbo) through its entry point: 4
+     steps at micro-batch 8 with the encoder frozen (flash forward in every
+     layer, forward and backward in the CTC head's self-attention), a dev
+     evaluation of 60 s recordings in 30 s pieces by greedy CTC; only the
+     CTC head moves; the head's flash forward and backward against their
+     plain versions on the first step's own inputs;
+ 14. 2 micro-batches of the dicow_v3 fine-tune under gradient
+     checkpointing with the remat policies 'full', 'dots' and 'attn' from
+     the same weights and batches: equal losses, gradients within the bf16
+     dq tolerance, one flash forward fewer per layer under 'attn'; ms per
+     micro-batch and peak memory of each; the flash forward and backward
+     against their plain versions on layer 0's own inputs;
+ 15. the dicow_v3 fine-tune with LoRA (training.use_lora=true): only the
+     adapters and the non-decoder parameters move, and the export has no
+     adapter keys and equals the merge.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing here imports jax or the JAX package.
 """
@@ -1086,22 +1112,18 @@ def phase_train(dev) -> dict:
     are set to 0 just before the run and read just after."""
     from safetensors.torch import load_file
 
-    from ts_asr_whisper_tpu_torch import kernels
     from ts_asr_whisper_tpu_torch.config import load_config
     from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
     from ts_asr_whisper_tpu_torch.models.containers import WhisperContainer
     from ts_asr_whisper_tpu_torch.models.convert import normalize_state_dict
     from ts_asr_whisper_tpu_torch.train import ModelTrainer
-    from ts_asr_whisper_tpu_torch.training import trainer as trainer_mod
 
     gc.collect()  # the decode phases' models
     torch.cuda.empty_cache()
     work = WORK / "train"
     shutil.rmtree(work, ignore_errors=True)
     manifest = write_corpus(work / "corpus", [30.0] * 8, seed=1)
-    model_dir = work / "model"
-    model_dir.mkdir(parents=True)
-    (model_dir / "config.json").write_text(json.dumps(TURBO))
+    model_dir = _turbo_dir(work)
     out_dir = work / "exp"
     cfg = load_config([
         "+train=dicow_v3", f"model.whisper_model={model_dir}",
@@ -1135,52 +1157,16 @@ def phase_train(dev) -> dict:
         f"micro-batch; set-up {setup_s:.1f} s")
 
     snaps = {"start": _snapshot(model)}
-    phase_labels = {}
-    unfreeze = trainer_mod.Trainer._maybe_unfreeze
-
-    def watched_unfreeze(self):
-        phase = self.state.phase
-        if phase == "preheat":
-            phase_labels["preheat"] = dict(self.labels)
-        unfreeze(self)
-        if phase == "preheat" and self.state.phase == "base":
-            torch.cuda.synchronize()
-            snaps["preheat"] = _snapshot(self.model)
-            phase_labels["base"] = dict(self.labels)
-
-    train_loop = trainer_mod.Trainer.train
-    loop_s = []
-
-    def timed_loop(self, it):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = train_loop(self, it)
-        torch.cuda.synchronize()
-        loop_s.append(time.perf_counter() - t1)
-        return out
-
-    trainer_mod.Trainer._maybe_unfreeze = watched_unfreeze
-    trainer_mod.Trainer.train = timed_loop
-    for name in kernels.launch_counts:
-        kernels.launch_counts[name] = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    try:
-        mt.train()
-    finally:
-        trainer_mod.Trainer._maybe_unfreeze = unfreeze
-        trainer_mod.Trainer.train = train_loop
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.launch_counts)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    res = _run_trainer(mt, snaps)
+    wall, launches, peak = res["wall"], res["launches"], res["peak"]
+    phase_labels = res["labels"]
     snaps["end"] = _snapshot(model)
 
     recs = [json.loads(line) for line in
             (out_dir / "metrics.jsonl").read_text().splitlines()]
     losses = [r["loss"] for r in recs]
     updates = t.max_steps // k
-    loop = loop_s[0]
+    loop = res["loop"]
     log(f"[train] {t.max_steps} micro-batches, {updates} updates: training "
         f"loop {loop:.2f} s, {loop * 1e3 / updates:.0f} ms per optimizer "
         f"update, {loop / t.max_steps * 1e3:.0f} ms per micro-batch of "
@@ -1247,6 +1233,605 @@ def phase_train(dev) -> dict:
             "peak_gib": peak}
 
 
+def _turbo_dir(work: Path) -> Path:
+    model_dir = work / "model"
+    model_dir.mkdir(parents=True)
+    (model_dir / "config.json").write_text(json.dumps(TURBO))
+    return model_dir
+
+
+def _watch_trainer(snaps: dict, phase_labels: dict, loop_s: list,
+                   at_end=None):
+    """Patch the Trainer to snapshot the parameters and labels at the
+    unfreeze, time its loop and call ``at_end(trainer)`` when the loop
+    ends; returns the function that restores it."""
+    from ts_asr_whisper_tpu_torch.training import trainer as trainer_mod
+
+    unfreeze = trainer_mod.Trainer._maybe_unfreeze
+    train_loop = trainer_mod.Trainer.train
+
+    def watched_unfreeze(self):
+        phase = self.state.phase
+        if phase == "preheat":
+            phase_labels["preheat"] = dict(self.labels)
+        unfreeze(self)
+        if phase == "preheat" and self.state.phase == "base":
+            torch.cuda.synchronize()
+            snaps["preheat"] = _snapshot(self.model)
+            phase_labels["base"] = dict(self.labels)
+
+    def timed_loop(self, it):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = train_loop(self, it)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t1)
+        if at_end is not None:
+            at_end(self)
+        return out
+
+    trainer_mod.Trainer._maybe_unfreeze = watched_unfreeze
+    trainer_mod.Trainer.train = timed_loop
+
+    def restore():
+        trainer_mod.Trainer._maybe_unfreeze = unfreeze
+        trainer_mod.Trainer.train = train_loop
+    return restore
+
+
+def _run_trainer(mt, snaps, at_end=None) -> dict:
+    """ModelTrainer.train with the launch counts set to 0 just before and
+    read just after; parameters snapshot at the start, the unfreeze and the
+    end of the loop."""
+    from ts_asr_whisper_tpu_torch import kernels
+
+    phase_labels, loop_s = {}, []
+    restore = _watch_trainer(snaps, phase_labels, loop_s, at_end)
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        mt.train()
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    return {"launches": dict(kernels.launch_counts),
+            "wall": time.perf_counter() - t0, "loop": loop_s[0],
+            "peak": torch.cuda.max_memory_allocated() / 2**30,
+            "labels": phase_labels}
+
+
+def check_flash_site(tag: str, q, k, v, seed: int) -> dict:
+    """The flash forward and backward on one call site's own q, k, v (as
+    the main path gave them; extra leading dims flatten into the batch, as
+    ``sdpa`` does) against their plain versions: the forward's out and lse
+    within TOLS / LSE_TOL (phase 3), the backward, both fed the kernel
+    forward's (out, lse) as in phase 3b, within BWD_F32_TOL (fp32) or
+    BWD_BF16_REL (bf16). Raises if they disagree; returns the errors."""
+    from ts_asr_whisper_tpu_torch.ops import attention as A
+
+    q, k, v = (x.reshape(-1, *x.shape[-3:]) for x in (q, k, v))
+    dt = q.dtype
+    with torch.no_grad():
+        out, lse = A.flash_mha_fwd(q, k, v, with_lse=True)
+        ref, ref_lse = A.flash_mha_reference(q, k, v, with_lse=True)
+        g = torch.randn(out.shape, device=q.device, generator=torch.Generator(
+            device=q.device).manual_seed(seed)).to(dt)
+        got = A.flash_mha_bwd(q, k, v, out, lse, g)
+        want = A.flash_mha_bwd_reference(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    atol, rtol = TOLS[dt]
+    ok = (torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
+          and torch.allclose(lse, ref_lse, atol=LSE_TOL, rtol=LSE_TOL))
+    res = {"fwd_max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
+    errs, rels = [], []
+    for a, r in zip(got, want):
+        a, r = a.float(), r.float()
+        errs.append((a - r).abs().max().item())
+        rels.append(((a - r).norm() / r.norm()).item())
+        ok = ok and (torch.allclose(a, r, atol=BWD_F32_TOL, rtol=BWD_F32_TOL)
+                     if dt == torch.float32 else rels[-1] <= BWD_BF16_REL)
+    res.update(bwd_max_abs_err=max(errs), bwd_frobenius_rel=max(rels))
+    bwd_tol = (f"atol/rtol {BWD_F32_TOL}" if dt == torch.float32
+               else f"Frobenius rel <= {BWD_BF16_REL}")
+    log(f"{tag} at {tuple(q.shape)} {str(dt)[6:]}: forward max_abs_err "
+        f"{res['fwd_max_abs_err']:.3e} (atol {atol}, rtol {rtol}), lse "
+        f"{res['lse_max_abs_err']:.3e} (atol/rtol {LSE_TOL}); backward "
+        f"dq/dk/dv max_abs_err {', '.join(f'{e:.3e}' for e in errs)}, "
+        f"Frobenius rel {', '.join(f'{r:.3e}' for r in rels)} ({bwd_tol})")
+    if not ok:
+        raise AssertionError(f"{tag}: the flash kernels disagree with their "
+                             "plain versions")
+    return res
+
+
+def phase_se_dicow_train(dev) -> dict:
+    """+train=se_dicow through ModelTrainer at turbo width: 8 SCBs,
+    self-enrollment (each row's enrollment is the 30 s of its own recording
+    where its speaker talks most), every SCB gate opened before the run so
+    that the SCB cross-attention's dk / dv carry a signal into the
+    enrollment stream; 2 preheat micro-batches, then 2 base ones, in
+    updates of 2. The flash forward and backward against their plain
+    versions on the run's own inputs of two call sites: the first SCB's
+    cross-attention and the first encoder layer's self-attention over both
+    streams (B * 2 rows). The export decodes through the port's SE-DiCoW
+    greedy path."""
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
+    from ts_asr_whisper_tpu_torch.decode import DecodeRunner
+    from ts_asr_whisper_tpu_torch.ops import attention as A
+    from ts_asr_whisper_tpu_torch.train import ModelTrainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = WORK / "se_dicow_train"
+    shutil.rmtree(work, ignore_errors=True)
+    manifest = write_corpus(work / "corpus", [30.0] * 4, seed=2)
+    model_dir = _turbo_dir(work)
+    out_dir = work / "exp"
+    cfg = load_config([
+        "+train=se_dicow", f"model.whisper_model={model_dir}",
+        f"model.scb_layers={SCB_LAYERS}", "model.reinit_encoder_from=null",
+        f"data.train_cutsets=[{manifest}]", "data.dev_cutsets=[]",
+        "data.eval_cutsets=[]", "data.enrollment_cutsets=[]",
+        "data.dataset_weights=null", "aug.musan_root=null",
+        "training.overall_batch_size=8",
+        "training.gradient_accumulation_steps=2", "training.max_steps=4",
+        "training.use_fddt_only_n_steps=2", "training.warmup_steps=0",
+        "training.eval_strategy=no", "training.save_strategy=no",
+        "training.logging_steps=1", f"training.output_dir={out_dir}"])
+    t = cfg.training
+    t0 = time.perf_counter()
+    mt = ModelTrainer(cfg, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model, mc = mt.model, mt.container.model_config
+    enc = model.encoder
+    with torch.no_grad():  # a fresh gate is 0: tanh(0) stops every signal
+        for i, scb in enumerate(enc.ca_enrolls):
+            scb.cae.cross_gate.gate.fill_(0.3 + 0.05 * i)
+    per_batch = mc.encoder_layers + mc.scb_layers + int(
+        mc.ctc_weight > 0 and (mc.additional_layer
+                               or mc.additional_self_attention_layer))
+    log(f"[se_dicow_train] {len(mt.train_dataset)} rows with "
+        f"self-enrollment, micro-batch {t.per_device_train_batch_size}, "
+        f"accumulation {t.gradient_accumulation_steps}, {t.max_steps} "
+        f"micro-batches ({t.use_fddt_only_n_steps} preheat), "
+        f"{mc.scb_layers} SCBs (gates opened), {per_batch} flash calls per "
+        f"micro-batch; set-up {setup_s:.1f} s")
+    # inputs of the first micro-batch: the first SCB's cross-attention
+    # (x_q from the sample stream, x_kv from the enrollment stream) and the
+    # first encoder layer (both streams)
+    scb_in, layer_in = [], []
+    hooks = [enc.ca_enrolls[0].cae.cross_attn.register_forward_hook(
+        lambda mod, args, out: scb_in.append(
+            tuple(a.detach() for a in args[:2])) if not scb_in else None),
+        enc.layers[0].register_forward_hook(
+            lambda mod, args, out: layer_in.append(args[0].detach())
+            if not layer_in else None)]
+    snaps = {"start": _snapshot(model)}
+    try:
+        res = _run_trainer(mt, snaps)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    snaps["end"] = _snapshot(model)
+    launches = res["launches"]
+    updates = t.max_steps // t.gradient_accumulation_steps
+    recs = [json.loads(line) for line in
+            (out_dir / "metrics.jsonl").read_text().splitlines()]
+    log(f"[se_dicow_train] {t.max_steps} micro-batches, {updates} updates: "
+        f"training loop {res['loop']:.2f} s, "
+        f"{res['loop'] * 1e3 / updates:.0f} ms per optimizer update "
+        f"(warm-up and data loading included); ModelTrainer.train "
+        f"{res['wall']:.1f} s with the HF export; peak mem "
+        f"{res['peak']:.1f} GiB; launches {launches}; losses "
+        f"{[round(r['loss'], 4) for r in recs]}")
+    if len(recs) != t.max_steps or not all(
+            math.isfinite(r[k]) for r in recs
+            for k in ("loss", "dec_loss", "ctc_loss", "grad_norm")):
+        raise AssertionError(f"se_dicow_train: steps not all finite: {recs}")
+    want = per_batch * t.max_steps
+    if not launches["flash_attn_fwd"] == launches["flash_attn_bwd"] == want:
+        raise AssertionError(f"se_dicow_train: flash launches {launches}, "
+                             f"want {want} forward and backward")
+    labels = res["labels"]
+    pre = {n for n, lab in labels["preheat"].items() if lab == "preheat"}
+    changed = _changed(snaps["start"], snaps["preheat"])
+    scb_kv = {n for n in pre if ".ca_enrolls." in n
+              and (".k_proj." in n or ".v_proj." in n)}
+    if not changed <= pre or not scb_kv or not scb_kv <= changed:
+        raise AssertionError(
+            f"se_dicow_train preheat changed {len(changed)} tensors, "
+            f"{sorted(changed - pre)[:5]} outside the preheat group, SCB "
+            f"k/v projections unchanged: {sorted(scb_kv - changed)[:5]}")
+    changed_base = _changed(snaps["preheat"], snaps["end"])
+    if any(".decoder." in n for n in changed_base):
+        raise AssertionError("se_dicow_train: the base phase moved the "
+                             "decoder")
+    log(f"[se_dicow_train] preheat changed {len(changed)} of {len(pre)} "
+        f"preheat tensors (the {len(scb_kv)} SCB k/v projections among "
+        f"them: dk / dv reached the enrollment stream) and nothing else; "
+        f"base changed {len(changed_base)}, decoder bit-identical")
+
+    # the flash kernels against their plain versions at two call sites of
+    # the run, on their own inputs
+    x_q, x_kv = scb_in[0]
+    if torch.equal(x_q, x_kv) or layer_in[0].shape[1] != 2:
+        raise AssertionError("se_dicow_train: the SCB's streams are equal or "
+                             "layer 0 ran on one stream")
+    attn = enc.ca_enrolls[0].cae.cross_attn
+    dt = mc.compute_dtype
+    with torch.no_grad():
+        q = attn.query(x_q, dt)
+        k, v = attn.keys_values(x_kv, dt)
+    site = {"scb0": check_flash_site(
+        "[se_dicow_train] SCB 0 cross-attention (q from the sample stream, "
+        "k/v from the enrollment stream)", q, k, v, seed=3)}
+    with torch.no_grad():
+        q, k, v = enc.layers[0].attn_in(layer_in[0], dt)
+    site["layer0"] = check_flash_site(
+        "[se_dicow_train] encoder layer 0 self-attention on both streams",
+        q, k, v, seed=4)
+    del mt, model, enc, attn, q, k, v, scb_in, layer_in, snaps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the export decodes through SE-DiCoW greedy (self-enrollment)
+    export = out_dir / "hf_export"
+    dcfg = load_config([
+        "+decode=se_dicow_greedy", f"model.whisper_model={export}",
+        f"model.scb_layers={SCB_LAYERS}", "model.use_enrollments=true",
+        "data.use_enrollments=true", "data.enrollment_cutsets=[]",
+        "model.ctc_weight=0.3", f"data.eval_cutsets=[{manifest}]",
+        "training.generation_max_length=32",
+        "training.per_device_eval_batch_size=8",
+        "training.save_visualizations=false",
+        f"training.output_dir={work / 'decode'}"])
+    runner = DecodeRunner(dcfg, dev)
+    gates = [round(s.cae.cross_gate.gate.item(), 4)
+             for s in runner.container.model.encoder.ca_enrolls]
+    metrics = runner.run()
+    tcp = metrics.get("eval_eval_cutset_tcp_wer")
+    log(f"[se_dicow_train] hf_export decoded by se_dicow_greedy: SCB gates "
+        f"{gates}, tcp_wer {tcp}, {runner.windows_decoded} row-windows")
+    if tcp is None or not math.isfinite(tcp) or not any(gates):
+        raise AssertionError(f"se_dicow_train: export decode {metrics}, "
+                             f"gates {gates}")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_update": res["loop"] * 1e3 / updates,
+            "peak_gib": res["peak"], "flash_sites": site}
+
+
+def phase_pretrain(dev) -> dict:
+    """+pretrain=turbo through the pre-training entry point: the encoder
+    without FDDTs frozen, the CTC head's bare self-attention (flash forward
+    and backward) trained for a few steps at micro-batch 8, then a dev
+    evaluation of 60 s recordings cut into 30 s pieces and decoded by
+    greedy CTC. Only the PRETRAIN_TRAINABLE modules change. The head's
+    flash forward and backward against their plain versions on the first
+    step's own inputs."""
+    from safetensors.torch import load_file
+
+    from ts_asr_whisper_tpu_torch import kernels
+    from ts_asr_whisper_tpu_torch import pretrain_encoder as P
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
+    from ts_asr_whisper_tpu_torch.models.containers import WhisperContainer
+    from ts_asr_whisper_tpu_torch.models.convert import normalize_state_dict
+    from ts_asr_whisper_tpu_torch.training.optim import path_matches
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = WORK / "pretrain"
+    shutil.rmtree(work, ignore_errors=True)
+    train = write_corpus(work / "train", [30.0] * 4, seed=3)
+    devset = write_corpus(work / "dev", [60.0] * 2, seed=4)
+    model_dir = _turbo_dir(work)
+    out_dir = work / "exp"
+    overrides = [
+        "+pretrain=turbo", f"model.whisper_model={model_dir}",
+        f"data.train_cutsets=[{train}]", f"data.dev_cutsets=[{devset}]",
+        "data.dataset_weights=null", "training.max_steps=4",
+        "training.per_device_train_batch_size=8",
+        "training.per_device_eval_batch_size=4", "training.logging_steps=1",
+        "training.save_strategy=no", f"training.output_dir={out_dir}"]
+    cfg = load_config(overrides)
+    step_t, dev_frames, head_in = [], [], []
+    loss_fn, decode = P.pretrain_loss, P.ctc_decode_chunked
+
+    def timed_loss(*args):
+        torch.cuda.synchronize()
+        step_t.append(time.perf_counter())
+        if len(step_t) > 1:
+            return loss_fn(*args)
+        # the first step: the CTC head's self-attention inputs, kept for
+        # the check against the plain versions
+        head = args[0].encoder.additional_self_attention_layer
+        hook = head.register_forward_hook(lambda mod, a, out: head_in.append(
+            (mod, a[0].detach(), a[1].detach(), a[2])))
+        try:
+            return loss_fn(*args)
+        finally:
+            hook.remove()
+
+    def seen_decode(model, mc, feats):
+        dev_frames.append(feats.shape[-1])
+        return decode(model, mc, feats)
+
+    P.pretrain_loss, P.ctc_decode_chunked = timed_loss, seen_decode
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        metrics = P.main(cfg, dev)
+    finally:
+        P.pretrain_loss, P.ctc_decode_chunked = loss_fn, decode
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t = cfg.training
+    steps = len(step_t)
+    ms_step = sorted((b - a) * 1e3 for a, b in zip(step_t, step_t[1:]))
+    ms_step = ms_step[len(ms_step) // 2]
+    mc_layers = TURBO["encoder_layers"]
+    windows = len(dev_frames) and sum(-(-f // 3000) for f in dev_frames)
+    want_fwd = (mc_layers + 1) * (steps + len(dev_frames))
+    log(f"[pretrain] {steps} steps at micro-batch "
+        f"{t.per_device_train_batch_size}: median {ms_step:.0f} ms per step "
+        f"(loss to loss, data loading included), main {wall:.1f} s with the "
+        f"HF export and the dev eval; peak mem {peak:.1f} GiB; launches "
+        f"{launches} (per step {mc_layers + 1} forward, 1 backward); dev "
+        f"feature lengths {dev_frames} ({windows} x 30 s pieces); "
+        f"metrics {metrics}")
+    if steps != t.max_steps or not metrics or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"pretrain: {steps} steps, metrics {metrics}")
+    if not dev_frames or min(dev_frames) <= 3000:
+        raise AssertionError(f"pretrain: dev inputs {dev_frames} frames, "
+                             "none over 30 s")
+    if launches["flash_attn_bwd"] != steps or \
+            launches["flash_attn_fwd"] != want_fwd:
+        raise AssertionError(f"pretrain: launches {launches}, want "
+                             f"{want_fwd} forward, {steps} backward")
+    # only the CTC head moved: against the same seeded init
+    start = dict(WhisperContainer(load_config(overrides), dev,
+                                  seed=t.seed).model.state_dict())
+    sd = normalize_state_dict(load_file(str(out_dir / "hf_export"
+                                            / "model.safetensors")))
+    moved = {k for k, v in sd.items()
+             if not torch.equal(v.to(dev), start[k].to(v.dtype))}
+    outside = {k for k in moved if not path_matches(
+        k.removeprefix("model.").replace(".", "/"), P.PRETRAIN_TRAINABLE)}
+    log(f"[pretrain] export: {len(moved)} of {len(sd)} tensors moved, all "
+        f"under {P.PRETRAIN_TRAINABLE}: {not outside}")
+    if not moved or outside:
+        raise AssertionError(f"pretrain moved {sorted(outside)[:5]} outside "
+                             "the CTC head")
+    # the head's flash forward and backward against their plain versions,
+    # on the first step's own inputs
+    head, x_q, x_kv, dt = head_in[0]
+    with torch.no_grad():
+        q = head.query(x_q, dt)
+        k, v = head.keys_values(x_kv, dt)
+    site = check_flash_site("[pretrain] CTC head self-attention", q, k, v,
+                            seed=5)
+    del start, sd, head_in, head, x_q, x_kv, q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_per_step": ms_step, "peak_gib": peak,
+            "flash_sites": {"head": site}}
+
+
+def phase_remat(dev) -> dict:
+    """2 micro-batches of 4 of the dicow_v3 fine-tune (base phase: decoder
+    frozen) without gradient checkpointing and with the remat policies
+    'full', 'dots' and 'attn', from the same weights and batches: the same
+    losses, gradients within the bf16 dq tolerance, one flash forward per
+    layer fewer under 'attn' than 'full'; the flash forward and backward
+    against their plain versions on layer 0's own inputs (the shapes of
+    every dicow_v3 training path). Each is warmed up by a micro-batch
+    of its own; the launch counts are set to 0 before its timed run and read
+    after it."""
+    from ts_asr_whisper_tpu_torch import kernels
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
+    from ts_asr_whisper_tpu_torch.train import ModelTrainer
+    from ts_asr_whisper_tpu_torch.training.dataloader import DataLoader
+    from ts_asr_whisper_tpu_torch.training.optim import param_labels
+    from ts_asr_whisper_tpu_torch.training.trainer import loss_fn, to_device
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = WORK / "remat"
+    shutil.rmtree(work, ignore_errors=True)
+    manifest = write_corpus(work / "corpus", [30.0] * 4, seed=5)
+    cfg = load_config([
+        "+train=dicow_v3", f"model.whisper_model={_turbo_dir(work)}",
+        "model.reinit_encoder_from=null", f"data.train_cutsets=[{manifest}]",
+        "data.dev_cutsets=[]", "data.eval_cutsets=[]",
+        "data.dataset_weights=null", "aug.musan_root=null",
+        "training.gradient_checkpointing=true",
+        f"training.output_dir={work / 'exp'}"])
+    mt = ModelTrainer(cfg, dev)
+    model, mc = mt.model, mt.container.model_config
+    labels = param_labels(model, cfg.model.prefixes_to_preheat,
+                          cfg.model.params_to_keep_frozen_keywords, False)
+    for name, p in model.named_parameters():
+        p.requires_grad_(labels[name] != "frozen")
+    model.train()
+    loader = iter(DataLoader(mt.train_dataset, mt.collator, batch_size=4,
+                             seed=0, num_workers=0))
+    batches = [to_device(next(loader), dev) for _ in range(3)]
+    num_prefix = len(mt.container.tokenizer.prefix_tokens) - 1
+    trainable = [p for p in model.parameters() if p.requires_grad]
+
+    def run(policy, micro):
+        model.set_gradient_checkpointing(policy is not None, policy or "full")
+        for p in trainable:
+            p.grad = None
+        losses = []
+        for b in micro:
+            total, _ = loss_fn(model, mc, b, num_prefix)
+            total.backward()
+            losses.append(total.detach())
+        return losses
+
+    out, ref = {}, None
+    # layer 0's input of the first micro-batch, for the check of the flash
+    # kernels on this path's own inputs (kept on the host: the peaks stay
+    # comparable)
+    layer_in = []
+    hook = model.encoder.layers[0].register_forward_hook(
+        lambda mod, args, o: layer_in.append(args[0].detach().cpu())
+        if not layer_in else None)
+    # two rounds, the second in reverse order: host-bound times drift
+    order = (None, "full", "dots", "attn")
+    for policy in order + order[::-1]:
+        # a micro-batch of this policy first: allocator growth and cuBLAS
+        # handles stay out of the timed ones
+        run(policy, batches[2:])
+        for name in kernels.launch_counts:
+            kernels.launch_counts[name] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = run(policy, batches[:2])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 2
+        key = policy or "off"
+        if key in out:  # the second round adds its time
+            out[key]["ms_rounds"].append(ms)
+            continue
+        r = {"ms_rounds": [ms], "launches": dict(kernels.launch_counts),
+             "peak": torch.cuda.max_memory_allocated() / 2**30,
+             "losses": [float(x) for x in losses]}
+        if ref is None:  # kept on the host: the peaks stay comparable
+            ref = [p.grad.detach().to("cpu", copy=True) for p in trainable]
+        num = sum((p.grad.float() - f.to(dev).float()).square().sum()
+                  for p, f in zip(trainable, ref))
+        den = sum(f.to(dev).float().square().sum() for f in ref)
+        r["grad_rel"] = float((num / den).sqrt())
+        r["device_ms"] = device_ms(lambda: run(policy, batches[:1]), reps=2)
+        out[key] = r
+    hook.remove()
+    with torch.no_grad():
+        q, k, v = model.encoder.layers[0].attn_in(layer_in[0].to(dev),
+                                                  mc.compute_dtype)
+    check_flash_site("[remat] encoder layer 0 self-attention", q, k, v,
+                     seed=6)
+    del q, k, v, layer_in
+    for key, r in out.items():
+        r["ms"] = min(r["ms_rounds"])
+        log(f"[remat] {key}: {' / '.join(f'{x:.0f}' for x in r['ms_rounds'])}"
+            f" ms per micro-batch of 4 in the two rounds (forward + "
+            f"backward; device {fmt_ms(r['device_ms'])}), peak mem "
+            f"{r['peak']:.1f} GiB, losses {r['losses']}, gradients vs no "
+            f"checkpointing Frobenius rel {r['grad_rel']:.3e}, launches "
+            f"{r['launches']}")
+    ref = out["off"]
+    fwd = {p: r["launches"]["flash_attn_fwd"] for p, r in out.items()}
+    layers = mc.encoder_layers
+    if any(r["losses"] != ref["losses"] for r in out.values()):
+        raise AssertionError("remat: the policies' losses differ")
+    if any(r["grad_rel"] > BWD_BF16_REL for r in out.values()):
+        raise AssertionError("remat: gradients differ beyond the bf16 dq "
+                             "tolerance")
+    if not (fwd["attn"] == fwd["off"] == fwd["full"] - 2 * layers and
+            fwd["dots"] == fwd["full"]):
+        raise AssertionError(f"remat: flash forwards {fwd}; 'attn' should "
+                             f"skip one per layer ({layers} x 2)")
+    del mt, model, batches, trainable, loader, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lora(dev) -> dict:
+    """+train=dicow_v3 with training.use_lora=true through ModelTrainer at
+    turbo width: 2 preheat micro-batches (adapters frozen), 4 base ones (B
+    leaves 0 in the first base update, A moves from the second).
+    Only the adapters and the non-decoder parameters move; the export has
+    no adapter keys and equals the merge W + scale * B A."""
+    from safetensors.torch import load_file
+
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
+    from ts_asr_whisper_tpu_torch.models.convert import normalize_state_dict
+    from ts_asr_whisper_tpu_torch.train import ModelTrainer
+    from ts_asr_whisper_tpu_torch.training.lora import lora_linears
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = WORK / "lora"
+    shutil.rmtree(work, ignore_errors=True)
+    manifest = write_corpus(work / "corpus", [30.0] * 4, seed=6)
+    out_dir = work / "exp"
+    cfg = load_config([
+        "+train=dicow_v3", f"model.whisper_model={_turbo_dir(work)}",
+        "model.reinit_encoder_from=null", f"data.train_cutsets=[{manifest}]",
+        "data.dev_cutsets=[]", "data.eval_cutsets=[]",
+        "data.dataset_weights=null", "aug.musan_root=null",
+        "training.use_lora=true", "training.overall_batch_size=8",
+        "training.gradient_accumulation_steps=2", "training.max_steps=6",
+        "training.use_fddt_only_n_steps=2", "training.warmup_steps=0",
+        "training.eval_strategy=no", "training.save_strategy=no",
+        "training.logging_steps=1", f"training.output_dir={out_dir}"])
+    mt = ModelTrainer(cfg, dev)
+    model = mt.model
+    snaps = {"start": _snapshot(model)}
+    merged = {}
+
+    def before_merge(trainer):
+        snaps["end"] = _snapshot(trainer.model)
+        with torch.no_grad():
+            for name, m in lora_linears(trainer.model):
+                merged[f"{name}.weight"] = (m.weight + (
+                    m.lora_B @ m.lora_A) * m.lora_scale).cpu()
+
+    res = _run_trainer(mt, snaps, at_end=before_merge)
+    end = snaps["end"]
+    adapters = {n for n in end if n.endswith(("lora_A", "lora_B"))}
+    moved = {n for n in end if n in adapters
+             or not torch.equal(end[n], snaps["start"][n])}
+    moved_lora = {n for n in adapters
+                  if not torch.equal(end[n], snaps["preheat"][n])}
+    dense_dec = {n for n in moved - adapters if ".decoder." in n}
+    updates = 3
+    log(f"[lora] {len(adapters)} adapter tensors on "
+        f"{len(merged)} decoder q/v projections; "
+        f"{res['loop'] * 1e3 / updates:.0f} ms per optimizer update, peak "
+        f"mem {res['peak']:.1f} GiB; base phase moved {len(moved_lora)} "
+        f"adapter tensors, {len(moved - adapters)} base tensors "
+        f"({len(dense_dec)} of the decoder); launches {res['launches']}")
+    if moved_lora != adapters or dense_dec or not moved - adapters:
+        raise AssertionError("lora: only the adapters and the non-decoder "
+                             "parameters should move")
+    del mt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    sd = normalize_state_dict(load_file(str(out_dir / "hf_export"
+                                            / "model.safetensors")))
+    bad = [k for k in sd if "lora" in k]
+    for k in set(end) - adapters:
+        want = merged.get(k, end[k])
+        if not torch.allclose(sd[k], want, atol=1e-6, rtol=0):
+            bad.append(k)
+    log(f"[lora] hf_export: {len(sd)} tensors, no adapter keys, "
+        f"{len(merged)} merged weights equal W + scale * B A: {not bad}")
+    if bad:
+        raise AssertionError(f"lora export: {bad[:5]}")
+    return {"launches": res["launches"],
+            "ms_per_update": res["loop"] * 1e3 / updates,
+            "peak_gib": res["peak"]}
+
+
 def main() -> int:
     kind = phase_card()
     dev = torch.device("cuda", 0)
@@ -1263,7 +1848,13 @@ def main() -> int:
              "se_dicow_beam_joint": phase_se_dicow(
                  dev, "bhtd", [60.0] * 2)["launches"],
              "se_dicow_beam_joint_tbhd": phase_se_dicow(
-                 dev, "tbhd", [60.0])["launches"]}
+                 dev, "tbhd", [60.0])["launches"],
+             "se_dicow_train": phase_se_dicow_train(dev)["launches"],
+             "pretrain": phase_pretrain(dev)["launches"]}
+    remat = phase_remat(dev)
+    paths.update({f"dicow_v3_remat_{p}": r["launches"]
+                  for p, r in remat.items()})
+    paths["dicow_v3_lora"] = phase_lora(dev)["launches"]
     from ts_asr_whisper_tpu_torch.kernels import KERNEL_SOURCES
 
     csrc = "ts_asr_whisper_tpu_torch/kernels/csrc"

@@ -91,7 +91,9 @@ def test_port_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-2000:]
     loaded = set(json.loads(proc.stdout.splitlines()[-1]))
     assert {"ts_asr_whisper_tpu_torch.decode",
-            "ts_asr_whisper_tpu_torch.train"} <= loaded
+            "ts_asr_whisper_tpu_torch.train",
+            "ts_asr_whisper_tpu_torch.pretrain_encoder",
+            "ts_asr_whisper_tpu_torch.training.lora"} <= loaded
     jax_pkg = {m for m in loaded if m == "ts_asr_whisper_tpu"
                or m.startswith("ts_asr_whisper_tpu.")}
     assert not jax_pkg
@@ -352,6 +354,33 @@ def test_process_session_copy(corpus):
     for p in preds:
         assert list(tmetrics.process_session(p, tok, "spkA", cut)) == \
             list(jseglst.process_session(p, tok, "spkA", ref_cut))
+
+
+def test_shortform_metrics_copy(tmp_path):
+    """``compute_shortform_metrics`` (metrics.py:182-224), the pre-training
+    dev scoring: the same source, and the same scores, texts and table on
+    predictions with timestamps, -1 and -100 padding and an empty label."""
+    assert inspect.getsource(tmetrics.compute_shortform_metrics) == \
+        inspect.getsource(jmetrics.compute_shortform_metrics)
+    tok = ByteLevelTokenizer(vocab_size=2000)
+    norm = jtrain.get_text_norm("whisper_nsf")
+    pad = [-100] * 4
+
+    def ids(text, fill):
+        return np.asarray(tok.encode_text(text) + fill)
+
+    preds = [ids("<|0.00|> good morning to everyone<|2.00|>", [-1] * 3),
+             ids("thanks for coming", []), ids("", [-1] * 5)]
+    labels = [ids("good morning everyone", pad), ids("thanks for coming",
+                                                     pad), ids("", pad)]
+    (tmp_path / "j").mkdir()
+    out = [mod.compute_shortform_metrics(
+        preds, labels, tok, norm, output_dir=str(d), return_texts=True)
+        for mod, d in ((tmetrics, tmp_path), (jmetrics, tmp_path / "j"))]
+    assert out[0] == out[1]
+    assert 0.0 < out[0][0]["wer"] < 1.0
+    assert (tmp_path / "predictions.csv").read_text() == \
+        (tmp_path / "j" / "predictions.csv").read_text()
 
 
 @pytest.mark.parametrize("gen_json", [None, {"max_length": 200,

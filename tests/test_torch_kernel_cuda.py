@@ -1,5 +1,8 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card: encoder flash attention forward and backward, beam ancestry attention
+card: encoder flash attention forward and backward (also on SE-DiCoW's SCB
+cross-attention over stream slices, and in an encoder under the 'attn'
+remat policy),
+beam ancestry attention
 (on a beam search's own ancestry map, at every class of pos, around the
 cluster size, at the longest cache it takes, and one launch captured in a
 CUDA graph and replayed at other positions), the candidate CTC-psi gather +
@@ -165,6 +168,85 @@ def test_flash_mha_autograd_runs_both_kernels(cuda):
     (A.flash_mha_reference(*refs) * w).sum().backward()
     for x, r in zip(xs, refs):
         torch.testing.assert_close(x.grad, r.grad, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scb_cross_attention_backward_on_stream_slices(cuda, dtype):
+    """SE-DiCoW's SCB: q from stream 0, k and v from stream 1 of (B, 2, T,
+    D), head-split views that are not contiguous. The kernels' dq lands in
+    the sample stream and dk / dv in the enrollment stream, as the plain
+    forward's autograd puts them; one forward and one backward launch."""
+    from ts_asr_whisper_tpu_torch.models.whisper import split_heads
+
+    rng = np.random.default_rng(11)
+    x0 = torch.from_numpy(rng.standard_normal((2, 2, 1500, 128)).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    w = torch.from_numpy(rng.standard_normal((2, 2, 1500, 64)).astype(
+        np.float32)).to(device=cuda, dtype=dtype)
+    grads = []
+    for attend in (A.flash_mha, A.flash_mha_reference):
+        x = x0.clone().requires_grad_()
+        q = split_heads(x[:, 0] * 0.125, 2)
+        k, v = split_heads(x[:, 1], 2), split_heads(x[:, 1] * 0.5, 2)
+        assert not q.is_contiguous() and not k.is_contiguous()
+        before = dict(launch_counts)
+        (attend(q, k, v).float() * w.float()).sum().backward()
+        torch.cuda.synchronize()
+        fwd = launch_counts["flash_attn_fwd"] - before["flash_attn_fwd"]
+        bwd = launch_counts["flash_attn_bwd"] - before["flash_attn_bwd"]
+        assert (fwd, bwd) == ((1, 1) if attend is A.flash_mha else (0, 0))
+        grads.append(x.grad)
+    out, ref = grads
+    assert out[:, 0].abs().max() > 0 and out[:, 1].abs().max() > 0
+    _assert_bwd_close((out[:, 0], out[:, 1]), (ref[:, 0], ref[:, 1]), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attn_remat_replays_no_flash_forward(cuda, dtype):
+    """Remat policy 'attn' (models/dicow.py::DiCoWEncoder._remat_layer) on
+    the card: a 2-layer DiCoW encoder with FDDTs (d_model 128 over 2 heads,
+    T 300) launches one flash forward per layer and pass where 'full'
+    launches two, one backward each, and gives the gradients of 'full'
+    (fp32 within the kernel backward's tolerance, bf16 within its
+    Frobenius bound: dq is summed in run-to-run order)."""
+    from ts_asr_whisper_tpu_torch.models.config import DiCoWConfig
+    from ts_asr_whisper_tpu_torch.models.dicow import DiCoW
+
+    cfg = DiCoWConfig(
+        vocab_size=2000, num_mel_bins=80, d_model=128, encoder_layers=2,
+        decoder_layers=1, encoder_attention_heads=2,
+        decoder_attention_heads=2, encoder_ffn_dim=256, decoder_ffn_dim=256,
+        max_source_positions=300, max_target_positions=64, use_fddt=True,
+        fddt_init="random", dtype=dtype)
+    torch.manual_seed(0)
+    enc = DiCoW(cfg, flash=True).to(cuda).encoder.train()
+    rng = np.random.default_rng(13)
+    feats = torch.from_numpy(rng.standard_normal((2, 80, 600)).astype(
+        np.float32)).to(cuda)
+    stno = torch.from_numpy(rng.dirichlet(np.ones(4), (2, 300)).astype(
+        np.float32)).transpose(1, 2).contiguous().to(cuda)
+    w = torch.from_numpy(rng.standard_normal((2, 300, 128)).astype(
+        np.float32)).to(cuda)
+    grads, fwd = {}, {}
+    for policy in ("full", "attn"):
+        enc.remat = policy
+        enc.zero_grad(set_to_none=True)
+        before = dict(launch_counts)
+        (enc(feats, stno).float() * w).sum().backward()
+        torch.cuda.synchronize()
+        fwd[policy] = launch_counts["flash_attn_fwd"] - before[
+            "flash_attn_fwd"]
+        assert launch_counts["flash_attn_bwd"] - before["flash_attn_bwd"] \
+            == cfg.encoder_layers
+        grads[policy] = {n: p.grad for n, p in enc.named_parameters()}
+    assert fwd == {"full": 2 * cfg.encoder_layers,
+                   "attn": cfg.encoder_layers}
+    for n, g in grads["attn"].items():
+        r = grads["full"][n]
+        if dtype == "float32":  # as tests/test_attention.py:63
+            torch.testing.assert_close(g, r, atol=2e-4, rtol=2e-4)
+        else:
+            assert (g - r).norm() <= 1e-2 * r.norm(), n
 
 
 def _ancestry_inputs(bb, n, h, t, dtype, device, seed=0, hist=None):

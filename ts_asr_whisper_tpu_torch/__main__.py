@@ -41,7 +41,9 @@ def main(argv=None):
     cfg = load_config(args.overrides)  # one device
     logger.info("experiment=%s output_dir=%s device=%s", cfg.experiment,
                 cfg.training.output_dir, device)
-    if cfg.training.decode_only:
+    if cfg.training.pretrain_encoder:
+        from .pretrain_encoder import main as run
+    elif cfg.training.decode_only:
         from .decode import main as run
     else:
         from .train import main as run

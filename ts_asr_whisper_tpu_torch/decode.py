@@ -7,9 +7,7 @@ Counterpart of the decode part of ts_asr_whisper_tpu/train.py
 (``make_generation_config`` :34-78, ``ModelTrainer._build_eval``,
 ``evaluate_dataset``, ``do_eval`` and the ``decode_only`` branch of
 ``train``), SE-DiCoW's enrollment cutset union included (train.py:96-99).
-Pre-training, SE-DiCoW training, LoRA, multi-device runs and
-``auto_find_batch_size`` are not ported yet and raise
-``NotImplementedError``.
+Multi-device runs are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -84,24 +82,8 @@ def make_generation_config(container: WhisperContainer, cfg: Cfg,
 def check_scope(cfg: Cfg) -> None:
     """Refuse the parts of a config that the port lacks."""
     t = cfg.training
-    if t.pretrain_encoder:
-        raise NotImplementedError("encoder pre-training is not ported yet")
     if t.mesh_shape and math.prod(t.mesh_shape) > 1:
         raise NotImplementedError("multi-device runs are not ported yet")
-    if not t.decode_only:
-        if cfg.data.use_enrollments or cfg.model.use_enrollments:
-            raise NotImplementedError(
-                "SE-DiCoW training (enrollments) is not ported yet; "
-                "decode_only=true decodes SE-DiCoW")
-        if t.use_lora:
-            raise NotImplementedError("LoRA fine-tuning is not ported yet")
-        if t.auto_find_batch_size:
-            raise NotImplementedError(
-                "training.auto_find_batch_size is not ported yet")
-        if t.gradient_checkpointing and t.remat_policy != "full":
-            raise NotImplementedError(
-                f"training.remat_policy={t.remat_policy!r} is not ported "
-                "yet (use 'full')")
 
 
 def scoring_backend() -> str:

@@ -1,9 +1,10 @@
 """Long-form scoring of the port: token streams -> attributed SegLST ->
-session WERs -> aggregate metrics.
+session WERs -> aggregate metrics; and the short-form WER/CER of encoder
+pre-training.
 
-A jax-free copy of ts_asr_whisper_tpu/eval/metrics.py:33-179
-(``compute_longform_metrics`` and its helpers) and of
-ts_asr_whisper_tpu/eval/seglst.py:102-134 (``process_session``). The
+A jax-free copy of ts_asr_whisper_tpu/eval/metrics.py:33-224
+(``compute_longform_metrics`` and its helpers, ``compute_shortform_metrics``)
+and of ts_asr_whisper_tpu/eval/seglst.py:102-134 (``process_session``). The
 originals reach jax through ``data/datasets.py``; here only the imports
 differ, and ``get_cut_recording_id`` / ``LhotseLongFormDataset`` come from
 the port's dataset copy. The port keeps its own copies: it imports nothing
@@ -216,3 +217,48 @@ def compute_longform_metrics(
             for row in rows:
                 writer.writerow({k: row.get(k) for k in keys})
     return aggregate_wer_metrics(rows, metrics_list)
+
+
+def compute_shortform_metrics(predictions, labels, tokenizer, text_norm,
+                              output_dir: Optional[str] = None,
+                              return_texts: bool = False):
+    """jiwer-style WER/CER on decoded strings (evaluation.py:32-79),
+    implemented with the native levenshtein (jiwer is not a dependency)."""
+    import re
+
+    from .native import levenshtein
+
+    def clean(ids):
+        ids = np.asarray(ids).copy()
+        ids[ids == -100] = tokenizer.pad_token_id
+        text = tokenizer.decode(ids, skip_special_tokens=True)
+        return text_norm(re.sub(r"\<\|\d+\.\d+\|\>", " ", text)).strip()
+
+    pred_str = [clean(p) for p in predictions]
+    label_str = [clean(l) or "-" for l in labels]
+
+    vocab: Dict[str, int] = {}
+
+    def ids_of(words):
+        return np.asarray([vocab.setdefault(w, len(vocab)) for w in words],
+                          np.int32)
+
+    total_err = total_len = 0
+    cer_err = cer_len = 0
+    for ref, hyp in zip(label_str, pred_str):
+        e, _ = levenshtein(ids_of(ref.split()), ids_of(hyp.split()))
+        total_err += e
+        total_len += len(ref.split())
+        ce, _ = levenshtein(ids_of(list(ref)), ids_of(list(hyp)))
+        cer_err += ce
+        cer_len += len(ref)
+    if output_dir:
+        with open(Path(output_dir) / "predictions.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["label", "prediction"])
+            w.writerows(zip(label_str, pred_str))
+    metrics = {"wer": total_err / max(total_len, 1),
+               "cer": cer_err / max(cer_len, 1)}
+    if return_texts:
+        return metrics, pred_str, label_str
+    return metrics

@@ -5,7 +5,8 @@ The reverse of ts_asr_whisper_tpu/models/convert.py's ``hf_to_params`` and
 the same mapping as its ``params_to_hf``, without jax: linear kernels
 (in, out) -> (out, in); conv kernels (k, C_in, C_out) -> (C_out, C_in, k);
 layer-norm ``scale`` -> ``weight``; the leading layer axis of the stacked
-layers is split into ``layers.{i}``.
+layers is split into ``layers.{i}``. ``lora_state_dict_from_jax`` carries
+the JAX package's LoRA tree across the same way.
 """
 
 from __future__ import annotations
@@ -124,6 +125,26 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: DiCoWConfig,
         _dec_layer(out, f"{d}.layers.{i}", lp)
     _ln(out, f"{d}.layer_norm", dec["layer_norm"])
     out["proj_out.weight"] = np.asarray(dec["embed_tokens"])
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def lora_state_dict_from_jax(lora: Mapping[str, Any],
+                             prefix: str = "model."
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX package's LoRA tree (training/lora.py::init_lora; numpy or
+    array-like leaves) -> the port's adapter parameters
+    (training/lora.py): ``<prefix>decoder.layers.{i}.<attn>.<proj>.lora_A``
+    (r, in) and ``.lora_B`` (out, r), from A (L, in, r) and B (L, r, out)
+    with the layer axis split."""
+    out: Dict[str, np.ndarray] = {}
+    for scope, tree in lora.items():
+        for attn, projs in tree["layers"].items():
+            for proj, ab in projs.items():
+                a, b = np.asarray(ab["lora_A"]), np.asarray(ab["lora_B"])
+                for i in range(a.shape[0]):
+                    pre = f"{prefix}{scope}.layers.{i}.{attn}.{proj}"
+                    out[f"{pre}.lora_A"] = a[i].T
+                    out[f"{pre}.lora_B"] = b[i].T
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 

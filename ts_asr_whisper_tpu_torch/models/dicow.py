@@ -17,15 +17,18 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.attention import sdpa
 from .config import DiCoWConfig
 from .fddt import FDDT
 from .whisper import (
+    REMAT_POLICIES,
     Attention,
     EncoderLayer,
     LayerNorm,
     WhisperDecoder,
     gelu,
     linear,
+    remat_context,
     sinusoidal_positions,
 )
 
@@ -82,9 +85,10 @@ class DiCoWEncoder(nn.Module):
         d = cfg.d_model
         self.cfg = cfg
         self.flash = flash
-        # recompute each layer (its FDDT included) in the backward pass
-        # (training.gradient_checkpointing, remat policy 'full')
-        self.remat = False
+        # None, or the remat policy under which each layer after the SCB
+        # region (its FDDT included) is recomputed in the backward pass
+        # (training.gradient_checkpointing, DiCoW.set_gradient_checkpointing)
+        self.remat = None
         self.conv1 = nn.Conv1d(cfg.num_mel_bins, d, 3, padding=1)
         self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
         self.embed_positions = nn.Embedding(cfg.max_source_positions, d)
@@ -133,11 +137,13 @@ class DiCoWEncoder(nn.Module):
         return x.transpose(1, 2)
 
     def forward(self, input_features: torch.Tensor,
-                stno_mask: torch.Tensor,
+                stno_mask: Optional[torch.Tensor] = None,
                 enroll_features: Optional[torch.Tensor] = None,
                 enroll_stno: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, n_mels, 3000) features, (B, 4, 1500) STNO -> last hidden
-        state (B, 1500, D) (dicow.py:104-193).
+        state (B, 1500, D) (dicow.py:104-193). The STNO mask is read only
+        by the FDDTs: without them (``use_fddt=False``, pre-training) it
+        may be None.
 
         With ``use_enrollments`` and enrollment features (B, n_mels, 3000) /
         STNO (B, 4, 1500), the sample and the enrollment run as a stream axis
@@ -173,11 +179,36 @@ class DiCoWEncoder(nn.Module):
             x = self.layers[i](x, cfg.compute_dtype, flash=self.flash)
         for i in range(scb_n, len(self.layers)):
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(self._layer, i, x, stno_mask,
-                               use_reentrant=False)
+                x = self._remat_layer(i, x, stno_mask)
             else:
                 x = self._layer(i, x, stno_mask)
         return self.layer_norm(x)
+
+    def _remat_layer(self, i: int, x: torch.Tensor,
+                     stno_mask: torch.Tensor) -> torch.Tensor:
+        """Layer ``i`` with its FDDT, recomputed in the backward pass under
+        ``self.remat``: one checkpointed region ('full', 'dots'), or, for
+        'attn', two around the attention core, which runs outside them.
+        The core's autograd then keeps its q, k, v, output and lse, so the
+        backward launches no flash forward (the JAX policy saves the
+        core's output, 'attn_out'), at the cost of holding those tensors
+        for every layer."""
+        if self.remat != "attn":
+            return checkpoint(self._layer, i, x, stno_mask,
+                              use_reentrant=False,
+                              context_fn=remat_context(self.remat))
+        x, q, k, v = checkpoint(self._attn_in, i, x, stno_mask,
+                                use_reentrant=False)
+        out = sdpa(q, k, v, flash=self.flash)
+        return checkpoint(self.layers[i].attn_out, x, out,
+                          self.cfg.compute_dtype, use_reentrant=False)
+
+    def _attn_in(self, i: int, x: torch.Tensor, stno_mask: torch.Tensor):
+        """Layer ``i``'s FDDT, then its attention's inputs: (x, q, k, v)."""
+        cfg = self.cfg
+        if cfg.use_fddt and i < cfg.num_fddts:
+            x = self.fddts[i](x, stno_mask)
+        return (x, *self.layers[i].attn_in(x, cfg.compute_dtype))
 
     def _layer(self, i: int, x: torch.Tensor,
                stno_mask: torch.Tensor) -> torch.Tensor:
@@ -245,13 +276,20 @@ class DiCoW(nn.Module):
     def set_gradient_checkpointing(self, enabled: bool,
                                    policy: str = "full") -> None:
         """``training.gradient_checkpointing``: recompute every encoder
-        layer (with its FDDT) and every decoder layer in the backward pass
-        (``torch.utils.checkpoint``, non-reentrant). Only the JAX package's
-        'full' policy is ported."""
-        if enabled and policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={policy!r} is not ported yet (use 'full')")
-        self.encoder.remat = self.decoder.remat = enabled
+        layer after the SCB region (with its FDDT) and every decoder layer
+        in the backward pass (``torch.utils.checkpoint``, non-reentrant),
+        keeping what ``policy`` saves, as the JAX package's
+        ``set_remat_policy``: 'full', 'dots' (``whisper.py::remat_context``)
+        or 'attn' (``DiCoWEncoder._remat_layer``; the decoder's layers as
+        'full'). The JAX package applies the policy only to its scanned
+        layers without FDDT and remats its FDDT layers in full
+        (dicow.py:162-172); here every checkpointed encoder layer takes it.
+        Loss and gradients are the same under every policy; memory and
+        time differ."""
+        if policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy={policy!r}: one of "
+                             f"{REMAT_POLICIES}")
+        self.encoder.remat = self.decoder.remat = policy if enabled else None
 
     @property
     def decoder(self) -> WhisperDecoder:

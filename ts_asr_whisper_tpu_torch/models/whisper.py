@@ -14,17 +14,21 @@ run in fp32; exact (erf) GELU; q scaled by head_dim**-0.5.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..ops.attention import plain_sdpa, sdpa
 from ..ops.beam_attention import (ancestry_attention,
                                   ancestry_attention_reference)
+from ..training.lora import merged_call as lora_merged_call
 from .config import DiCoWConfig
 
 KVCache = Dict[str, torch.Tensor]
@@ -66,6 +70,34 @@ def linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """x @ W^T + b with weights and input cast to the compute dtype."""
     b = m.bias.to(dtype) if m.bias is not None else None
     return F.linear(x.to(dtype), m.weight.to(dtype), b)
+
+
+REMAT_POLICIES = ("full", "dots", "attn")
+
+
+def remat_context(policy: str):
+    """``context_fn`` of ``torch.utils.checkpoint`` for a checkpointed
+    region under a remat policy (whisper.py:156-174):
+
+    - 'full': save nothing, recompute the whole region;
+    - 'dots': save the outputs of the products without batch dimensions,
+      ``aten.mm`` and ``aten.addmm`` (what ``F.linear`` becomes, for 2-D
+      and 3-D inputs alike); the attention's batched products (``bmm``)
+      and convolutions are recomputed, as
+      ``dots_with_no_batch_dims_saveable`` leaves them;
+    - 'attn': as 'full' within a region. The encoder's layers keep their
+      attention core outside the regions instead
+      (``DiCoWEncoder._remat_layer``); the decoder's attention (plain
+      products) is recomputed."""
+    if policy != "dots":
+        return noop_context_fn
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy_fn(ctx, func, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if func in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -140,10 +172,21 @@ class EncoderLayer(nn.Module):
     def mlp(self, x: torch.Tensor, dtype) -> torch.Tensor:
         return linear(self.fc2, gelu(linear(self.fc1, x, dtype)), dtype)
 
-    def forward(self, x: torch.Tensor, dtype, flash: bool = False):
+    def attn_in(self, x: torch.Tensor, dtype):
+        """q, k, v of the self-attention over the pre-norm of x."""
         h = self.self_attn_layer_norm(x)
-        x = x + self.self_attn(h, h, dtype, flash=flash)
+        return (self.self_attn.query(h, dtype),
+                *self.self_attn.keys_values(h, dtype))
+
+    def attn_out(self, x: torch.Tensor, out: torch.Tensor, dtype):
+        """The rest of the layer from the attention core's output: output
+        projection and residual, then the MLP block."""
+        x = x + linear(self.self_attn.out_proj, merge_heads(out), dtype)
         return x + self.mlp(self.final_layer_norm(x), dtype)
+
+    def forward(self, x: torch.Tensor, dtype, flash: bool = False):
+        out = sdpa(*self.attn_in(x, dtype), flash=flash)
+        return self.attn_out(x, out, dtype)
 
 
 class DecoderLayer(EncoderLayer):
@@ -200,7 +243,8 @@ class WhisperDecoder(nn.Module):
             DecoderLayer(d, cfg.decoder_attention_heads, cfg.decoder_ffn_dim)
             for _ in range(cfg.decoder_layers))
         self.layer_norm = LayerNorm(d)
-        self.remat = False  # see DiCoW.set_gradient_checkpointing
+        # None, or the remat policy: see DiCoW.set_gradient_checkpointing
+        self.remat = None
 
     def embed(self, input_ids: torch.Tensor, pos0: int) -> torch.Tensor:
         dt = self.cfg.compute_dtype
@@ -211,17 +255,21 @@ class WhisperDecoder(nn.Module):
     def forward(self, input_ids: torch.Tensor, encoder_hidden: torch.Tensor,
                 position_offset: int = 0) -> torch.Tensor:
         """Teacher-forced decoder (whisper.py:251-267): (B, T) tokens ->
-        (B, T, D) final hidden."""
+        (B, T, D) final hidden. A layer with LoRA adapters runs on its
+        weights merged once here (training/lora.py::merged_call), as the
+        JAX package merges once in the loss (trainer.py:64-68)."""
         dt = self.cfg.compute_dtype
         x = self.embed(input_ids, position_offset)
         t = input_ids.shape[-1]
         mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
         enc = encoder_hidden.to(dt)
         for layer in self.layers:
+            run = lora_merged_call(layer)
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, enc, dt, mask, use_reentrant=False)
+                x = checkpoint(run, x, enc, dt, mask, use_reentrant=False,
+                               context_fn=remat_context(self.remat))
             else:
-                x = layer(x, enc, dt, self_mask=mask)
+                x = run(x, enc, dt, mask)
         return self.layer_norm(x)
 
     def lm_logits(self, hidden: torch.Tensor,

@@ -1,12 +1,13 @@
-"""CTC loss of the port.
+"""CTC loss and greedy CTC decode of the port.
 
-Counterpart of ts_asr_whisper_tpu/ops/ctc.py:29-122 (``ctc_loss``,
-``ctc_loss_from_padded_labels``). The JAX package writes the alpha recursion
-as a ``lax.scan`` for XLA; it has no Pallas kernel, so here it is PyTorch's
-``F.ctc_loss`` over ``log_softmax`` of the fp32 logits, with the same
-conventions: blank = the last vocab index, ``reduction='mean'`` divides each
-sequence's NLL by its target length (at least 1) before the batch mean, and
-``zero_infinity`` zeroes the loss (and gradient) of an impossible alignment.
+Counterpart of ts_asr_whisper_tpu/ops/ctc.py:29-135 (``ctc_loss``,
+``ctc_loss_from_padded_labels``, ``ctc_greedy_decode``). The JAX package
+writes the alpha recursion as a ``lax.scan`` for XLA; it has no Pallas
+kernel, so here it is PyTorch's ``F.ctc_loss`` over ``log_softmax`` of the
+fp32 logits, with the same conventions: blank = the last vocab index,
+``reduction='mean'`` divides each sequence's NLL by its target length (at
+least 1) before the batch mean, and ``zero_infinity`` zeroes the loss (and
+gradient) of an impossible alignment.
 """
 
 from __future__ import annotations
@@ -46,3 +47,15 @@ def ctc_loss_from_padded_labels(logits: torch.Tensor, labels: torch.Tensor,
     label_lengths = (labels >= 0).sum(dim=-1)
     return ctc_loss(logits, labels, logit_lengths, label_lengths, blank_id,
                     reduction=reduction)
+
+
+def ctc_greedy_decode(logits: torch.Tensor, blank_id: int) -> torch.Tensor:
+    """Collapse repeats and drop blanks (ops/ctc.py:125-135): (B, T, V)
+    logits -> (B, T) token ids, left-aligned and padded with -1. Ties in
+    the argmax go to the first index, as ``jnp.argmax``."""
+    ids = logits.argmax(dim=-1)
+    prev = torch.cat([torch.full_like(ids[:, :1], -1), ids[:, :-1]], dim=1)
+    keep = (ids != prev) & (ids != blank_id)
+    # stable left-pack of the kept positions
+    order = torch.argsort((~keep).to(torch.uint8), dim=-1, stable=True)
+    return torch.gather(torch.where(keep, ids, -1), 1, order)

@@ -1,6 +1,9 @@
 """Fine-tune orchestration of the port, one device: container (+ optional
-weight re-init) -> train dataset and collator -> Trainer with long-form dev
-evals, checkpoint and best-model callbacks -> HF export -> final test eval.
+weight re-init) -> train dataset and collator (SE-DiCoW: with enrollments)
+-> Trainer with long-form dev evals, checkpoint and best-model callbacks
+(retried at half the micro-batch on running out of memory with
+``training.auto_find_batch_size``) -> LoRA merge -> HF export -> final test
+eval.
 
 Counterpart of the train branch of ts_asr_whisper_tpu/train.py
 (``ModelTrainer.__init__`` :82-142, ``_fit`` :314-399, ``train`` :401-490)
@@ -10,6 +13,7 @@ on a mesh of one. Decoding and scoring go through ``decode.DecodeRunner``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import tarfile
 from pathlib import Path
@@ -21,10 +25,12 @@ from .config import Cfg
 from .data.collators import DataCollator
 from .data.datasets import TS_ASR_Dataset, load_cutsets
 from .decode import DecodeRunner, no_tf32
+from .models.containers import WhisperContainer
 from .models.dicow import DiCoW
 from .training.checkpoints import (export_hf_checkpoint, restore_checkpoint,
                                    save_checkpoint)
 from .training.dataloader import DataLoader
+from .training.lora import lora_linears, merge_lora, merged
 from .training.trainer import Trainer, TrainState
 from .txt_norm import get_text_norm
 from .utils.logging_def import get_logger
@@ -36,25 +42,29 @@ class ModelTrainer:
     def __init__(self, cfg: Cfg, device: torch.device):
         self.cfg = cfg
         self.runner = DecodeRunner(cfg, device)
-        self.container = self.runner.container
-        if cfg.model.reinit_encoder_from:
-            self.container.reinit_encoder_from(cfg.model.reinit_encoder_from)
-        elif cfg.model.reinit_from:
-            self.container.reinit_from(cfg.model.reinit_from)
+        self._reinit_weights()
 
         data, aug = cfg.data, cfg.aug
         self.train_text_norm = get_text_norm(data.train_text_norm)
         self.train_dataset = None
         if data.train_cutsets and not cfg.training.decode_only:
+            # SE-DiCoW: each row's enrollment from the enrollment cutset
+            # union (external mixtures) or its own recording (train.py:
+            # 103-120)
             self.train_dataset = TS_ASR_Dataset(
-                load_cutsets(list(data.train_cutsets), False),
+                load_cutsets(list(data.train_cutsets), data.use_enrollments),
                 text_norm=self.train_text_norm,
                 use_timestamps=data.use_timestamps,
                 dataset_weights=data.dataset_weights,
                 num_mel_bins=self.container.model_config.num_mel_bins,
                 global_lang_id=data.global_lang_id,
                 musan_augment_prob=aug.musan_augment_prob,
-                musan_root=aug.musan_root)
+                musan_root=aug.musan_root,
+                use_enrollments=data.use_enrollments,
+                enrollment_cutset=self.runner.enrollment_cutset,
+                num_other_speakers=data.number_of_mixed_speakers,
+                min_overlap_ratio=data.min_enrollment_mix_overlap,
+                max_overlap_ratio=data.max_enrollment_mix_overlap)
         self.dev_datasets = self.runner._build_eval(data.dev_cutsets,
                                                     data.dev_diar_cutsets)
         self.eval_datasets = self.runner.eval_datasets
@@ -69,12 +79,42 @@ class ModelTrainer:
             stno_min_segment_length=aug.stno_min_segment_length,
             stno_max_segment_length=aug.stno_max_segment_length,
             spec_aug_prob=aug.spec_aug_prob if aug.do_augment
-            or aug.spec_aug_prob else 0.0)
+            or aug.spec_aug_prob else 0.0,
+            use_enrollments=data.use_enrollments)
         self.gen_cfg = self.runner.gen_cfg
+
+    @property
+    def container(self) -> WhisperContainer:
+        return self.runner.container
 
     @property
     def model(self) -> DiCoW:
         return self.container.model
+
+    def _reinit_weights(self) -> None:
+        """The weight re-init loaders (train.py:86-90)."""
+        m = self.cfg.model
+        if m.reinit_encoder_from:
+            self.container.reinit_encoder_from(m.reinit_encoder_from)
+        elif m.reinit_from:
+            self.container.reinit_from(m.reinit_from)
+
+    def _rebuild_model(self, resume_path) -> None:
+        """A fresh container from the initial weights, re-initialized and
+        resumed as at the start (train.py:333-353): a failed attempt may
+        have updated the parameters, and its memory goes first."""
+        self.runner.container = None
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        self.runner.container = WhisperContainer(
+            self.cfg, self.runner.device, seed=self.cfg.training.seed)
+        self._reinit_weights()
+        if resume_path:
+            state, _ = restore_checkpoint(str(resume_path))
+            self.model.load_state_dict(state["params"])
+            logger.info("Re-restored resume checkpoint %s after the OOM "
+                        "retry", resume_path)
 
     def _store_run_artifacts(self) -> None:
         """training.store_src: the composed config and a snapshot of the
@@ -92,30 +132,55 @@ class ModelTrainer:
         logger.info("store_src: wrote config.yaml + src.tar.gz to %s", out)
 
     def _fit(self, num_prefix: int, start_step: int, eval_fn, checkpoint_fn,
-             save_best_fn, load_best_fn) -> TrainState:
+             save_best_fn, load_best_fn, resume_path=None) -> TrainState:
+        """Build the Trainer and the loader and run; with
+        ``auto_find_batch_size`` an attempt that runs out of memory is
+        retried at half the micro-batch and twice the accumulation (the
+        same global batch) on a model rebuilt from its initial or resumed
+        weights (train.py:314-399). Any other error is raised."""
         t = self.cfg.training
-        global_bs = t.per_device_train_batch_size  # a mesh of one device
-        spe = len(self.train_dataset) // global_bs or None
-        if t.max_steps <= 0:
-            # HF convention: train by epochs; derive the step budget so the
-            # lr schedule and the loop agree
-            t.max_steps = (spe or 1) * t.num_train_epochs
-            logger.info("max_steps<=0: training %d epochs = %d steps",
-                        t.num_train_epochs, t.max_steps)
-        trainer = Trainer(self.cfg, self.model, num_prefix_tokens=num_prefix,
-                          eval_fn=eval_fn if self.dev_datasets else None,
-                          checkpoint_fn=checkpoint_fn,
-                          save_best_fn=save_best_fn,
-                          load_best_fn=load_best_fn,
-                          start_step=start_step, steps_per_epoch=spe)
-        loader = DataLoader(
-            self.train_dataset, self.collator, batch_size=global_bs,
-            seed=t.seed, num_workers=t.dataloader_num_workers,
-            prefetch_factor=t.dataloader_prefetch_factor,
-            worker_type=t.dataloader_worker_type,
-            num_epochs=(None if t.max_steps and t.max_steps > 0
-                        else t.num_train_epochs))
-        return trainer.train(iter(loader))
+        retry = False
+        while True:
+            if retry:
+                self._rebuild_model(resume_path)
+            global_bs = t.per_device_train_batch_size  # a mesh of one
+            spe = len(self.train_dataset) // global_bs or None
+            if t.max_steps <= 0:
+                # HF convention: train by epochs; derive the step budget so
+                # the lr schedule and the loop agree
+                t.max_steps = (spe or 1) * t.num_train_epochs
+                logger.info("max_steps<=0: training %d epochs = %d steps",
+                            t.num_train_epochs, t.max_steps)
+            trainer = Trainer(self.cfg, self.model,
+                              num_prefix_tokens=num_prefix,
+                              eval_fn=eval_fn if self.dev_datasets else None,
+                              checkpoint_fn=checkpoint_fn,
+                              save_best_fn=save_best_fn,
+                              load_best_fn=load_best_fn,
+                              start_step=start_step, steps_per_epoch=spe)
+            loader = DataLoader(
+                self.train_dataset, self.collator, batch_size=global_bs,
+                seed=t.seed, num_workers=t.dataloader_num_workers,
+                prefetch_factor=t.dataloader_prefetch_factor,
+                worker_type=t.dataloader_worker_type,
+                num_epochs=(None if t.max_steps and t.max_steps > 0
+                            else t.num_train_epochs))
+            try:
+                return trainer.train(iter(loader))
+            except Exception as e:
+                oom = isinstance(e, torch.OutOfMemoryError) or \
+                    "out of memory" in str(e).lower()
+                if not (t.auto_find_batch_size and oom and global_bs > 1):
+                    raise
+            # outside the handler: the traceback no longer holds the
+            # failed attempt's tensors
+            trainer = loader = None
+            t.per_device_train_batch_size = global_bs // 2
+            t.gradient_accumulation_steps *= 2
+            logger.warning("OOM at per-device batch %d -> retrying with %d "
+                           "(grad accumulation x2)", global_bs,
+                           t.per_device_train_batch_size)
+            retry = True
 
     def train(self) -> Dict[str, float]:
         t = self.cfg.training
@@ -140,7 +205,9 @@ class ModelTrainer:
                         start_step)
 
         def eval_fn(model, step):
-            return self.runner.do_eval(self.dev_datasets, step, "dev")
+            # LoRA: the dev decode reads the adapted weights, merged once
+            with merged(model):
+                return self.runner.do_eval(self.dev_datasets, step, "dev")
 
         def checkpoint_fn(model, step):
             save_checkpoint(os.path.join(t.output_dir, "ckpt"),
@@ -158,7 +225,12 @@ class ModelTrainer:
 
         state = self._fit(num_prefix, start_step,
                           eval_fn if t.predict_with_generate else None,
-                          checkpoint_fn, save_best_fn, load_best_fn)
+                          checkpoint_fn, save_best_fn, load_best_fn,
+                          resume_path)
+        if any(lora_linears(self.model)):
+            # the export and the final eval take the merged weights
+            # (train.py:463-468)
+            merge_lora(self.model)
 
         g = self.gen_cfg
         gen_json = {

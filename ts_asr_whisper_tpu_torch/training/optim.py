@@ -9,7 +9,8 @@ optax computes it so that the same gradients give the same parameters:
   ``preheat_only`` everything outside the preheat group is frozen. Names
   are ``named_parameters()`` names brought to the JAX package's path form
   by ``_normalize_prefix`` (``model.encoder.fddts.0.x`` ->
-  ``encoder/fddts/0/x``). A frozen parameter gets ``requires_grad_(False)``
+  ``encoder/fddts/0/x``); LoRA adapters are 'frozen' in the preheat phase
+  and 'base' after it. A frozen parameter gets ``requires_grad_(False)``
   and no optimizer state (optax's ``set_to_zero``);
 - ``optax.clip_by_global_norm``: when the global norm g of every trainable
   gradient is not below ``max_grad_norm``, each gradient becomes
@@ -81,6 +82,12 @@ def make_lr_schedule(cfg: TrainingConfig, base_lr: Optional[float] = None
 
 def param_label(path: str, prefixes_to_preheat: Sequence[str],
                 frozen_keywords: Sequence[str], preheat_only: bool) -> str:
+    """optim.py:71-80. A LoRA adapter (training/lora.py: ``.../lora_A``,
+    ``.../lora_B``; the JAX package's ``lora/...``) trains outside the
+    preheat phase whatever the keywords: they freeze the dense weights it
+    wraps."""
+    if path.endswith(("/lora_A", "/lora_B")):
+        return "frozen" if preheat_only else "base"
     if path_matches(path, prefixes_to_preheat):
         return "preheat"
     if preheat_only or path_contains(path, frozen_keywords):

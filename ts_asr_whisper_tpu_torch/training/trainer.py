@@ -9,6 +9,8 @@ call of its jitted step is one micro-batch under ``optax.MultiSteps``);
 the optimizer's own count, which the learning-rate schedule reads, counts
 updates. Frozen parameters have ``requires_grad`` off, so autograd neither
 computes nor stores their gradients (the JAX step's ``stop_gradient``).
+With ``training.use_lora`` the decoder's q/v projections get LoRA adapters
+(training/lora.py) before the first optimizer is built.
 """
 
 from __future__ import annotations
@@ -28,11 +30,13 @@ from ..utils.logging_def import get_logger
 from ..utils.observability import (MetricsLogger, global_norm,
                                    module_grad_norms, start_trace,
                                    stop_trace)
+from .lora import init_lora, lora_linears
 from .optim import build_optimizer
 
 logger = get_logger(__name__)
 
-BATCH_KEYS = ("input_features", "stno_mask", "labels", "upp_labels")
+BATCH_KEYS = ("input_features", "stno_mask", "labels", "upp_labels",
+              "enroll_features", "enroll_stno")
 PROFILE_STEPS = 12  # training.profile_dir traces the first dozen steps
 
 
@@ -53,12 +57,15 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
 
 def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
             batch: Dict[str, torch.Tensor], num_prefix_tokens: int):
-    """Teacher-forced forward and the joint loss (trainer.py:59-82)."""
+    """Teacher-forced forward and the joint loss (trainer.py:59-82), with
+    SE-DiCoW's enrollment features and STNO when the batch carries them.
+    LoRA adapters merge once in the decoder's forward (training/lora.py)."""
     labels = batch["labels"].long()
     dec_in = shift_tokens_right(labels, model_cfg.pad_token_id,
                                 model_cfg.decoder_start_token_id)
     logits, enc_hidden = model(batch["input_features"], batch["stno_mask"],
-                               dec_in)
+                               dec_in, batch.get("enroll_features"),
+                               batch.get("enroll_stno"))
     enc_logits = None
     if model_cfg.ctc_weight > 0.0:
         enc_logits = model.encoder.ctc_logits(enc_hidden)
@@ -92,8 +99,10 @@ class Trainer:
         load_best_fn: Optional[Callable[[DiCoW], None]] = None,
     ):
         t = cfg.training
-        if t.use_lora:
-            raise NotImplementedError("LoRA fine-tuning is not ported yet")
+        if t.use_lora and not any(lora_linears(model)):
+            # trainer.py:156-160: the adapters from seed + 1
+            init_lora(model, torch.Generator(device=next(
+                model.parameters()).device).manual_seed(t.seed + 1))
         self.cfg = cfg
         self.model = model
         self.model_cfg = model.cfg
@@ -169,8 +178,11 @@ class Trainer:
         parts["grad_norm"] = global_norm(grads)
         if self.cfg.training.watch_grads:
             # keyed as the JAX trainer's grad_norm/<encoder|decoder>/<module>
-            parts.update(module_grad_norms(self.model.named_parameters(),
-                                           sep="/"))
+            # and, for the LoRA adapters, grad_norm/lora/decoder
+            parts.update(module_grad_norms(
+                ((f"lora.{n.removeprefix('model.')}"
+                  if n.endswith(("lora_A", "lora_B")) else n, p)
+                 for n, p in self.model.named_parameters()), sep="/"))
         self.tx.step(grads)
         for p in params:
             p.grad = None
