@@ -93,7 +93,30 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      against their plain versions on layer 0's own inputs;
  15. the dicow_v3 fine-tune with LoRA (training.use_lora=true): only the
      adapters and the non-decoder parameters move, and the export has no
-     adapter keys and equals the merge.
+     adapter keys and equals the merge;
+ 16. long-form beam-5 joint-CTC decode (dicow_v3_beam_joint) of 1 recording
+     of 60 s (2 rows) over the int8 cross-KV (decoding.cross_kv_quant=true)
+     with a generation_config.json asking for temperature-fallback retries
+     (FALLBACK_GEN): the retries per window printed, both temperatures
+     reached; the ancestry kernel in every decoder layer of every beam
+     step, the psi kernel once per beam step and never in a (greedy) retry;
+     a second run gives the same hypotheses; layer 0's cross-attention on
+     its own inputs, int8 against exact, within tests/test_kv_quant.py's
+     bound;
+ 17. long-form greedy decode with token timestamps (longform_generate,
+     alignment heads TS_HEADS) of 2 recordings of 60 s (4 rows): per-token
+     times on every segment, non-decreasing and inside their window; the
+     flash kernel in every encoder layer; ms per greedy step with and
+     without the alignment collection;
+ 18. (run after phase 7, on its model) greedy decode of phase 7's first
+     window at batch 16 over the exact and the int8 cross-KV: ms per step,
+     device ms per step (utils/devicetime.py), cross-KV bytes, peak memory;
+ 19. (run after phase 6: device times taken after the training phases
+     came out 10-20x low in one run, cause not found) the device log-mel
+     (ops/mel.py) against the host featurizer over 16
+     windows of 30 s at 128 mels, within tests/test_mel.py's tolerance, ms
+     per window of each; the beam step's candidate top-10 over (2, 5 x
+     51866), thresholded against the stable sort, equal and timed.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing here imports jax or the JAX package.
 """
@@ -174,6 +197,22 @@ REORDER_CASES = ((128, 10), (128, 15), (448, 10))
 REORDER_KINDS = ("repeats", "identity", "reversal")
 # SE-DiCoW: se_dicow_greedy.yaml's SCB count
 SCB_LAYERS = 8
+# the fallback ladder of Whisper's published generation_config.json
+# (temperatures, log-prob and no-speech thresholds) with HF's default
+# compression-ratio threshold 2.4; random weights fail the log-prob check,
+# so every window retries
+FALLBACK_GEN = {"temperature": [0.0, 0.4, 0.8], "logprob_threshold": -1.0,
+                "no_speech_threshold": 0.6,
+                "compression_ratio_threshold": 2.4}
+# the int8 decode step against the exact one (tests/test_kv_quant.py):
+# max |dh| < KV_QUANT_REL * std(h_exact)
+KV_QUANT_REL = 0.05
+# token timestamps: 6 alignment heads in turbo's decoder layers 2-3 (any
+# heads serve with random weights)
+TS_HEADS = ((2, 1), (2, 7), (2, 13), (3, 4), (3, 10), (3, 16))
+# device log-mel against the host featurizer: tests/test_mel.py's
+# tolerance
+MEL_ATOL, MEL_RTOL = 5e-5, 1e-5
 
 
 def log(msg: str) -> None:
@@ -841,12 +880,13 @@ def phase_encoder(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def run_decode(dev, tag: str, overrides, durations) -> dict:
+def run_decode(dev, tag: str, overrides, durations, gen_json=None) -> dict:
     """Drive the decode entry point (DecodeRunner) on a synthetic corpus at
-    turbo width with random weights; the launch counts are set to 0 just
-    before the run and read just after. Checks the output files, a finite
-    tcp_wer, and that every encoder layer and every CTC-head call ran the
-    flash kernel."""
+    turbo width with random weights (and ``gen_json`` as the model dir's
+    generation_config.json); the launch counts are set to 0 just before the
+    run and read just after. Checks the output files, a finite tcp_wer, and
+    that every encoder layer and every CTC-head call ran the flash
+    kernel."""
     from ts_asr_whisper_tpu_torch import kernels
     from ts_asr_whisper_tpu_torch.config import load_config
     from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
@@ -860,6 +900,9 @@ def run_decode(dev, tag: str, overrides, durations) -> dict:
     model_dir = work / "model"
     model_dir.mkdir(parents=True)
     (model_dir / "config.json").write_text(json.dumps(TURBO))
+    if gen_json is not None:
+        (model_dir / "generation_config.json").write_text(
+            json.dumps(gen_json))
     out_dir = work / "exp"
     cfg = load_config([
         *overrides,
@@ -950,7 +993,7 @@ def run_decode(dev, tag: str, overrides, durations) -> dict:
             f"times, want {want} ({per_call} x encoder calls + CTC-head "
             "calls)")
     return {"runner": runner, "launches": launches, "steps": steps,
-            "calls": calls, "wall": wall}
+            "calls": calls, "wall": wall, "hyps": sorted(hyps)}
 
 
 def phase_decode(dev) -> dict:
@@ -960,6 +1003,7 @@ def phase_decode(dev) -> dict:
         raise AssertionError(f"greedy decode ran beam kernels: "
                              f"{res['launches']}")
     phase_decode_loop(res["runner"], dev)
+    phase_int8_cross_kv(res["runner"], dev)
     return res["launches"]
 
 
@@ -987,7 +1031,8 @@ def phase_decode_loop(runner, dev, steps: int = 125) -> None:
     del model, enc
 
 
-def run_beam_decode(dev, tag: str, overrides, durations) -> dict:
+def run_beam_decode(dev, tag: str, overrides, durations,
+                    gen_json=None) -> dict:
     """A beam joint-CTC decode through the decode entry point (run_decode);
     the time inside beam_search (prefill and cross-KV included) gives ms per
     beam step. Checks that it was a beam joint-CTC decode whose every beam
@@ -1012,7 +1057,7 @@ def run_beam_decode(dev, tag: str, overrides, durations) -> dict:
     torch.cuda.empty_cache()
     longform.beam_search = timed_beam_search
     try:
-        res = run_decode(dev, tag, overrides, durations)
+        res = run_decode(dev, tag, overrides, durations, gen_json)
     finally:
         longform.beam_search = beam_search
     steps, launches = res["steps"], res["launches"]
@@ -1832,6 +1877,381 @@ def phase_lora(dev) -> dict:
             "peak_gib": res["peak"]}
 
 
+def phase_int8_cross_kv(runner, dev) -> None:
+    """Phase 18 (run on phase 7's runner): greedy decode of the phase-7
+    corpus's first window at batch 16 over the exact and the int8
+    cross-KV, run to full length (125 steps): ms per step (host clock, one
+    call each way after a warm-up call), device ms per step
+    (utils/devicetime.py, a further call), the cross-KV bytes and the peak
+    memory of each. Numbers to record; int8 is lossy, so the tokens may
+    differ."""
+    import dataclasses
+
+    from ts_asr_whisper_tpu_torch.decoding.greedy import greedy_decode
+    from ts_asr_whisper_tpu_torch.models.whisper import quantize_cross_kv
+    from ts_asr_whisper_tpu_torch.training.dataloader import eval_batches
+    from ts_asr_whisper_tpu_torch.utils.device import force_execution
+    from ts_asr_whisper_tpu_torch.utils.devicetime import measure_device_ms
+
+    steps = 125
+    model = runner.container.model
+    ds = runner.eval_datasets["eval_cutset"]
+    _, batch = next(iter(eval_batches(ds, runner.collator, 16,
+                                      pad_to_full=True)))
+    feats = torch.as_tensor(batch["input_features"][:, :, :3000]).to(dev)
+    stno = torch.as_tensor(batch["stno_mask"][:, :, :1500]).to(dev)
+    prompt = torch.tensor(runner.container.tokenizer.prefix_tokens[:3],
+                          device=dev).repeat(feats.shape[0], 1)
+    with torch.no_grad():
+        enc = model.encoder(feats, stno)
+        cross = model.decoder.precompute_cross_kv(enc)
+        nbytes = {"exact": sum(t.numel() * t.element_size()
+                               for kv in cross for t in kv),
+                  "int8": sum(t.numel() * t.element_size()
+                              for kv in quantize_cross_kv(cross)
+                              for t in kv.values())}
+    del cross
+    res = {}
+    for mode in ("exact", "int8"):
+        gen_cfg = dataclasses.replace(runner.gen_cfg,
+                                      cross_kv_quant=mode == "int8")
+
+        def run():
+            return greedy_decode(model, gen_cfg, enc, prompt, steps,
+                                 force_full_length=True)
+
+        force_execution(run())  # warm-up
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run()
+        force_execution(out)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dev_ms = measure_device_ms(run)
+        res[mode] = out.sequences
+        log(f"[int8_cross_kv] {mode}: {wall * 1e3 / steps:.2f} ms/step, "
+            f"device {fmt_ms(None if dev_ms is None else dev_ms / steps)} "
+            f"per step, cross-KV {nbytes[mode] / 1e6:.1f} MB, peak "
+            f"{peak:.2f} GiB (batch {feats.shape[0]}, {steps} steps)")
+        if dev_ms is None:
+            raise AssertionError("int8_cross_kv: the profiler caught no "
+                                 "kernel")
+    differ = (res["exact"] != res["int8"]).any(dim=1).sum().item()
+    log(f"[int8_cross_kv] rows whose tokens differ: {differ} of "
+        f"{feats.shape[0]}")
+    del model, enc, res
+
+
+def phase_fallback_int8(dev) -> dict:
+    """Phase 16: dicow_v3_beam_joint through the decode entry point over
+    the int8 cross-KV (decoding.cross_kv_quant=true), the model dir's
+    generation_config.json holding FALLBACK_GEN, 1 recording of 60 s (2
+    rows, batch 2). Counts the fallback retries (greedy, sampled) per
+    window; the ancestry kernel in every decoder layer of every beam step,
+    the psi kernel once per beam step and never in a retry (its count
+    equals the beam steps); the same run again gives the same hypotheses
+    (seeded generators); layer 0's cross-attention on its own inputs of the
+    run's first window, int8 against exact cross-KV in fp32, within
+    tests/test_kv_quant.py's bound."""
+    from ts_asr_whisper_tpu_torch.decoding import longform
+    from ts_asr_whisper_tpu_torch.models.whisper import quantize_cross_kv
+
+    tag = "beam_joint_fallback_int8"
+    greedy_decode, beam_search = longform.greedy_decode, longform.beam_search
+    retries, windows, first = [], [0], {}
+
+    def counted_greedy(*args, **kwargs):
+        retries.append(kwargs.get("temperature", 0.0))
+        return greedy_decode(*args, **kwargs)
+
+    def captured_beam(model, gen_cfg, enc, init_tokens, *args, **kwargs):
+        windows[0] += 1
+        first.setdefault("enc", enc)
+        first.setdefault("prompt", init_tokens)
+        return beam_search(model, gen_cfg, enc, init_tokens, *args, **kwargs)
+
+    longform.greedy_decode = counted_greedy
+    longform.beam_search = captured_beam
+    try:
+        res = run_beam_decode(dev, tag, ["+decode=dicow_v3_beam_joint",
+                                         "model.ctc_weight=0.3",
+                                         "decoding.cross_kv_quant=true"],
+                              [60.0], gen_json=FALLBACK_GEN)
+    finally:
+        longform.greedy_decode = greedy_decode
+        longform.beam_search = beam_search
+    steps, launches, runner = res["steps"], res["launches"], res["runner"]
+    gen_cfg = runner.gen_cfg
+    layers = TURBO["decoder_layers"]
+    by_temp = {t: retries.count(t) for t in sorted(set(retries))}
+    log(f"[{tag}] {windows[0]} beam window batches, greedy retries by "
+        f"temperature {by_temp}: "
+        f"{len(retries) / max(windows[0], 1):.2f} per window batch; "
+        f"launches {launches}")
+    if not gen_cfg.cross_kv_quant or tuple(gen_cfg.temperature) != tuple(
+            FALLBACK_GEN["temperature"]):
+        raise AssertionError(f"{tag}: not an int8 fallback decode: "
+                             f"{gen_cfg}")
+    if set(by_temp) != {0.4, 0.8}:
+        raise AssertionError(f"{tag}: retries {by_temp}, want both "
+                             "temperatures of the ladder")
+    if launches["ancestry_attn"] != layers * steps:
+        raise AssertionError(f"{tag}: ancestry_attn launched "
+                             f"{launches['ancestry_attn']} times, want "
+                             f"{layers * steps}")
+    if launches["kv_reorder_bhtd"] or launches["kv_reorder_tbhd"]:
+        raise AssertionError(f"{tag}: a reorder kernel ran: {launches}")
+
+    hyps = [p.read_text() for p in res["hyps"]]
+    runner.run()
+    again = [p.read_text() for p in res["hyps"]]
+    if again != hyps:
+        raise AssertionError(f"{tag}: a second run gave other hypotheses")
+    log(f"[{tag}] a second run gave the same {len(hyps)} hypothesis files")
+
+    # layer 0's cross-attention on its own inputs of the run's first window:
+    # its query in the prompt's prefill, the run's exact cross-KV, in fp32
+    # so that only the int8 rounding differs
+    from ts_asr_whisper_tpu_torch.models import whisper as W
+
+    dec = runner.container.model.decoder
+    enc, prompt = first["enc"], first["prompt"]
+    cross_attention, queries = W.cross_attention, []
+
+    def captured_cross(q, cross, dtype):
+        queries.append(q)
+        return cross_attention(q, cross, dtype)
+
+    W.cross_attention = captured_cross
+    try:
+        with torch.no_grad():
+            cross = dec.precompute_cross_kv(enc)
+            b, p = prompt.shape
+            dec.decoder_cached(prompt, 0, dec.init_kv_cache(b, p, dev), cross)
+    finally:
+        W.cross_attention = cross_attention
+    q0, (k0, v0) = queries[0].float(), cross[0]
+    with torch.no_grad():
+        h_exact = cross_attention(q0, (k0.float(), v0.float()),
+                                  torch.float32)
+        h_int8 = cross_attention(q0, quantize_cross_kv([(k0, v0)])[0],
+                                 torch.float32)
+    err = (h_exact - h_int8).abs().max().item()
+    lim = KV_QUANT_REL * h_exact.std().item()
+    log(f"[{tag}] layer 0's cross-attention on the run's first window, fp32,"
+        f" int8 vs exact cross-KV: max |dh| {err:.4e} (bound {lim:.4e} = "
+        f"{KV_QUANT_REL} std(h)), q {tuple(q0.shape)}, k/v "
+        f"{tuple(k0.shape)} {k0.dtype}")
+    if not 0 < err < lim:
+        raise AssertionError(f"{tag}: int8 cross-attention off by {err}")
+    del runner, dec, enc, cross, first, queries
+    return res
+
+
+def phase_token_ts(dev) -> dict:
+    """Phase 17: long-form greedy (dicow_v3_greedy settings) with token
+    timestamps through ``longform_generate`` on 2 recordings of 60 s (4
+    rows, batch 4), alignment heads TS_HEADS, the DTW cropped to each
+    recording's frames: every segment carries per-token times; within each
+    window they are non-decreasing and inside the window; the flash kernel
+    in every encoder layer. Then ms per greedy step at batch 4 with and
+    without the alignment collection, in turns."""
+    import dataclasses
+
+    import numpy as np
+
+    from ts_asr_whisper_tpu_torch import kernels
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
+    from ts_asr_whisper_tpu_torch.decode import DecodeRunner
+    from ts_asr_whisper_tpu_torch.decoding import longform
+    from ts_asr_whisper_tpu_torch.decoding.greedy import greedy_decode
+    from ts_asr_whisper_tpu_torch.decoding.token_timestamps import \
+        alignment_slots_from_heads
+    from ts_asr_whisper_tpu_torch.models.dicow import DiCoWEncoder
+    from ts_asr_whisper_tpu_torch.training.dataloader import eval_batches
+    from ts_asr_whisper_tpu_torch.utils.device import force_execution
+
+    tag = "greedy_token_ts"
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = WORK / tag
+    shutil.rmtree(work, ignore_errors=True)
+    manifest = write_corpus(work / "corpus", [60.0] * 2, seed=1)
+    model_dir = work / "model"
+    model_dir.mkdir(parents=True)
+    (model_dir / "config.json").write_text(json.dumps(TURBO))
+    cfg = load_config(["+decode=dicow_v3_greedy",
+                       f"model.whisper_model={model_dir}",
+                       f"data.eval_cutsets=[{manifest}]",
+                       "training.generation_max_length=128",
+                       "training.per_device_eval_batch_size=4",
+                       "training.save_visualizations=false",
+                       f"training.output_dir={work / 'exp'}"])
+    runner = DecodeRunner(cfg, dev)
+    model, tok = runner.container.model, runner.container.tokenizer
+    gen_cfg = dataclasses.replace(runner.gen_cfg,
+                                  return_token_timestamps=True,
+                                  alignment_heads=TS_HEADS)
+    batches = [b for _, b in eval_batches(runner.eval_datasets["eval_cutset"],
+                                          runner.collator, 4,
+                                          pad_to_full=True)]
+    windows, calls = [], {"encoder": 0}
+    retrieve = longform.retrieve_segment
+
+    def recorded_retrieve(seq, ts_begin, nframes, offset,
+                          token_timestamps=None, prompt_len=0):
+        windows.append((nframes, offset, token_timestamps))
+        return retrieve(seq, ts_begin, nframes, offset, token_timestamps,
+                        prompt_len)
+
+    def count_encoder(module, args, output):
+        if isinstance(module, DiCoWEncoder):
+            calls["encoder"] += 1
+
+    longform.retrieve_segment = recorded_retrieve
+    hook = torch.nn.modules.module.register_module_forward_hook(count_encoder)
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    segments = []
+    t0 = time.perf_counter()
+    try:
+        for batch in batches:
+            forced = batch.get("forced_decoder_ids")
+            detect = forced is None and bool(gen_cfg.lang_ids)
+            if forced is None:
+                forced = np.tile(np.asarray(tok.prefix_tokens[:3]),
+                                 (batch["input_features"].shape[0], 1))
+            out = longform.longform_generate(
+                model, gen_cfg, batch["input_features"], batch["stno_mask"],
+                batch["attention_mask"], forced, return_segments=True,
+                detect_lang=detect,
+                token_ts_num_frames=batch["attention_mask"].sum(-1))
+            segments.extend(s for row in out.segments for s in row)
+    finally:
+        longform.retrieve_segment = retrieve
+        hook.remove()
+    force_execution(list(model.parameters())[:1])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    n_tok = sum(len(s.tokens) for s in segments)
+    log(f"[{tag}] {len(batches)} batch(es) of 4 rows, {len(windows)} "
+        f"row-windows, {len(segments)} segments, {n_tok} tokens, "
+        f"{calls['encoder']} encoder calls, wall {wall:.1f} s, launches "
+        f"{launches}, alignment heads {TS_HEADS}")
+    if not segments or any(s.token_timestamps is None
+                           or not np.isfinite(s.token_timestamps).all()
+                           for s in segments):
+        raise AssertionError(f"{tag}: a segment without token timestamps")
+    for nframes, offset, row in windows:
+        if row is None or (np.diff(row) < 0).any() or row.min() < 0 \
+                or row.max() > nframes * 0.01 + 1e-6:
+            raise AssertionError(
+                f"{tag}: window at {offset} s ({nframes} frames): token "
+                f"times {None if row is None else row.tolist()}")
+    want = TURBO["encoder_layers"] * calls["encoder"]
+    if calls["encoder"] == 0 or launches["flash_attn_fwd"] != want:
+        raise AssertionError(f"{tag}: flash_attn_fwd launched "
+                             f"{launches['flash_attn_fwd']} times, want "
+                             f"{want}")
+    if any(launches[k] for k in ("ancestry_attn", "psi_gather_dot",
+                                 "kv_reorder_bhtd", "kv_reorder_tbhd")):
+        raise AssertionError(f"{tag}: beam kernels ran: {launches}")
+
+    # ms per greedy step, with and without the alignment collection
+    steps = 125
+    gen = torch.Generator(device=dev).manual_seed(4)
+    enc = torch.randn(4, 1500, TURBO["d_model"], device=dev, generator=gen) \
+        .to(runner.container.model_config.compute_dtype)
+    prompt = torch.tensor(tok.prefix_tokens[:3], device=dev).repeat(4, 1)
+    slots = torch.as_tensor(alignment_slots_from_heads(
+        TS_HEADS, TURBO["decoder_layers"], TURBO["decoder_attention_heads"]),
+        device=dev)
+    times = {"plain": [], "alignment": []}
+    for rnd in range(2):
+        for mode in (("plain", "alignment") if rnd == 0
+                     else ("alignment", "plain")):
+            kw = {"alignment_slots": slots} if mode == "alignment" else {}
+            force_execution(list(model.parameters())[:1])
+            t0 = time.perf_counter()
+            force_execution(greedy_decode(model, gen_cfg, enc, prompt, steps,
+                                          force_full_length=True, **kw))
+            times[mode].append((time.perf_counter() - t0) * 1e3 / steps)
+    per_mode = ", ".join(f"{m} {t[0]:.2f} / {t[1]:.2f} ms/step"
+                         for m, t in times.items())
+    log(f"[{tag}] greedy loop alone, batch 4, {steps} steps, in turns: "
+        f"{per_mode}")
+    del runner, model, enc
+    return {"launches": launches}
+
+
+def phase_mel_topk(dev) -> None:
+    """Phase 19: the device log-mel (ops/mel.py) against the host
+    featurizer at fp32 over 16 windows of 30 s at 128 mels (turbo),
+    within tests/test_mel.py's tolerance; ms per 30 s window of each.
+    Then the beam step's candidate top-k (rows of 5 x 51866 scores, batch
+    2, top 10): the thresholded impl against the stable sort, equal and
+    timed."""
+    import numpy as np
+
+    from ts_asr_whisper_tpu_torch.data.features import (N_SAMPLES,
+                                                        log_mel_numpy)
+    from ts_asr_whisper_tpu_torch.ops.mel import log_mel_spectrogram
+    from ts_asr_whisper_tpu_torch.ops.topk import topk_lax, topk_thresholded
+    from ts_asr_whisper_tpu_torch.utils.device import force_execution
+    from ts_asr_whisper_tpu_torch.utils.devicetime import measure_device_ms
+
+    n_win = 16
+    rng = np.random.default_rng(3)
+    t = np.arange(N_SAMPLES) / 16000.0
+    wav = (0.1 * np.sin(2 * np.pi * 220 * t)[None]
+           + 0.02 * rng.standard_normal((n_win, N_SAMPLES))).astype(
+               np.float32)
+    host_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ref = log_mel_numpy(wav, 128)
+        host_ms.append((time.perf_counter() - t0) * 1e3 / n_win)
+    x = torch.from_numpy(wav).to(dev)
+    out = log_mel_spectrogram(x, 128)
+    force_execution(out)
+    diff = (out.cpu() - torch.from_numpy(ref)).abs()
+    err = diff.max().item()
+    bad = (diff > MEL_ATOL + MEL_RTOL * torch.from_numpy(ref).abs()).sum()
+    dev_ms = median_ms(lambda: log_mel_spectrogram(x, 128), reps=10) / n_win
+    dev_busy = measure_device_ms(lambda: log_mel_spectrogram(x, 128))
+    busy = None if dev_busy is None else dev_busy / n_win
+    log(f"[mel] device log-mel, 128 mels, {n_win} windows of 30 s: "
+        f"max_abs_err vs the host featurizer {err:.3e} (atol {MEL_ATOL}, "
+        f"rtol {MEL_RTOL}); ms per 30 s window: device {dev_ms:.4f} "
+        f"(device busy {fmt_ms(busy)}), host featurizer {sorted(host_ms)[1]:.2f} "
+        f"(runs {', '.join(f'{m:.2f}' for m in host_ms)})")
+    if out.shape != (n_win, 128, 3000) or bad:
+        raise AssertionError(f"mel: {int(bad)} values outside the tolerance")
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scores = torch.randn(AUDIO_ROWS, BEAMS * TURBO["vocab_size"], device=dev,
+                         generator=gen)
+    # beams 1..4 of a first step: equal -1e9 rows
+    scores[:, TURBO["vocab_size"]:] = -1e9
+    k = 2 * BEAMS
+    v_ref, i_ref = topk_lax(scores, k)
+    v, i = topk_thresholded(scores, k)
+    if not (torch.equal(v, v_ref) and torch.equal(i, i_ref)):
+        raise AssertionError("topk: thresholded differs from the stable sort")
+    res = {}
+    for name, fn in (("stable sort", topk_lax),
+                     ("thresholded", topk_thresholded)):
+        res[name] = (median_ms(lambda: fn(scores, k), reps=20),
+                     measure_device_ms(lambda: fn(scores, k)))
+    log(f"[topk] beam step's candidate top-{k} over ({AUDIO_ROWS}, "
+        f"{BEAMS} x {TURBO['vocab_size']}) fp32: "
+        + ", ".join(f"{n} {ms:.4f} ms per call (device {fmt_ms(d)})"
+                    for n, (ms, d) in res.items()))
+
+
 def main() -> int:
     kind = phase_card()
     dev = torch.device("cuda", 0)
@@ -1842,6 +2262,7 @@ def main() -> int:
     k_psi = phase_psi(dev)
     k_reorder = phase_reorder(dev)
     phase_encoder(dev)
+    phase_mel_topk(dev)
     paths = {"dicow_v3_greedy": phase_decode(dev),
              "dicow_v3_beam_joint": phase_beam_decode(dev)["launches"],
              "dicow_v3_train": phase_train(dev)["launches"],
@@ -1855,6 +2276,9 @@ def main() -> int:
     paths.update({f"dicow_v3_remat_{p}": r["launches"]
                   for p, r in remat.items()})
     paths["dicow_v3_lora"] = phase_lora(dev)["launches"]
+    paths["dicow_v3_beam_joint_fallback_int8"] = phase_fallback_int8(
+        dev)["launches"]
+    paths["dicow_v3_greedy_token_ts"] = phase_token_ts(dev)["launches"]
     from ts_asr_whisper_tpu_torch.kernels import KERNEL_SOURCES
 
     csrc = "ts_asr_whisper_tpu_torch/kernels/csrc"

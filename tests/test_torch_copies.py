@@ -54,7 +54,8 @@ JAXPKG = REPO / "ts_asr_whisper_tpu"
 UNCHANGED_COPIES = (
     "data/audio.py", "data/manifests.py", "data/stno.py",
     "data/collators.py", "data/augmentations.py", "data/tokenizer.py",
-    "decoding/generation_config.py", "eval/postprocess.py", "eval/seglst.py",
+    "decoding/generation_config.py", "decoding/token_timestamps.py",
+    "eval/postprocess.py", "eval/seglst.py",
     "eval/wer.py", "eval/wer_utils.py", "eval/orc.py", "eval/viz.py",
     "training/dataloader.py", "txt_norm/__init__.py", "txt_norm/nsf.py",
     "txt_norm/whisper_en.py", "utils/logging_def.py")
@@ -189,6 +190,42 @@ def test_fix_timestamps_copy():
     for x in (0.01, 0.03, 29.999, 1.2345):
         assert tlf.round_to_nearest_0_02(x) == jlf.round_to_nearest_0_02(x)
     assert isinstance(tlf.round_to_nearest_0_02(1.0), Decimal)
+
+
+@pytest.mark.parametrize("name", ["compression_ratio", "_needs_fallback"])
+def test_fallback_checks_copy(name):
+    """The fallback quality checks are longform.py:279-307 unchanged, and
+    give the same verdicts."""
+    assert inspect.getsource(getattr(tlf, name)) == \
+        inspect.getsource(getattr(jlf, name))
+    from ts_asr_whisper_tpu.decoding.generation_config import \
+        GenerationConfig as JGen
+    from ts_asr_whisper_tpu_torch.decoding.generation_config import \
+        GenerationConfig as TGen
+
+    seqs = ([5, 6, 7] * 12, list(range(40)), [], [51000, 3] * 5)
+    for seq in seqs:
+        if name == "compression_ratio" and seq:
+            assert tlf.compression_ratio(seq, 51866) == \
+                jlf.compression_ratio(seq, 51866)
+        for kw in ({"compression_ratio_threshold": 2.4},
+                   {"logprob_threshold": -1.0},
+                   {"compression_ratio_threshold": 1.5,
+                    "logprob_threshold": -0.2}):
+            for lp in (-2.0, -0.5, 0.0):
+                assert tlf._needs_fallback(seq, lp, TGen(**kw), 51866) == \
+                    jlf._needs_fallback(seq, lp, JGen(**kw), 51866)
+
+
+@pytest.mark.parametrize("name", ["set_joint_debug_decoder", "_debug_print"])
+def test_joint_debug_printer_copy(name):
+    """The debug printer and its decoder registration are
+    ctc_rescorer.py:146-186 unchanged."""
+    from ts_asr_whisper_tpu.decoding import ctc_rescorer as jctc
+    from ts_asr_whisper_tpu_torch.decoding import ctc_rescorer as tctc
+
+    assert inspect.getsource(getattr(tctc, name)) == \
+        inspect.getsource(getattr(jctc, name))
 
 
 def test_model_config_copy():

@@ -4,7 +4,9 @@ and the same safetensors weights: identical tcpWER hypothesis files and
 equal tcp_wer, for long-form greedy decode and for beam-5 joint-CTC decode
 (``+decode=dicow_v3_beam_joint``, with the CTC head in the weights), and
 for SE-DiCoW's ``+decode=se_dicow_greedy`` and ``+decode=se_dicow_beam_joint``
-on a corpus with external enrollments; the same logged losses and a
+on a corpus with external enrollments, and for beam joint CTC over the int8
+cross-KV with the model's ``generation_config.json`` asking for
+temperature-fallback retries; the same logged losses and a
 loadable HF export for the fine-tune; and no run at all without a GPU unless
 ``--device cpu`` asks for the CPU."""
 
@@ -84,6 +86,25 @@ def _overrides(corpus, out_dir):
             "training.per_device_eval_batch_size=4",
             "training.generation_max_length=40", "training.mesh_shape=[1]",
             f"training.output_dir={out_dir}"]
+
+
+@pytest.fixture(scope="module")
+def corpus_fallback(tmp_path_factory):
+    """The CTC corpus, whose model dir also holds a generation_config.json
+    with a temperature ladder of (0.0, 0.0) and quality thresholds that
+    every window fails: each window's beam pass is retried greedily (by
+    argmax at 0.0, so both CLIs give the same tokens)."""
+    corpus = _make_corpus(tmp_path_factory.mktemp("torch_e2e_fallback"),
+                          _beam_joint_overrides)
+    (corpus["model"] / "generation_config.json").write_text(json.dumps(
+        {"temperature": [0.0, 0.0], "logprob_threshold": 0.0,
+         "compression_ratio_threshold": 2.4}))
+    return corpus
+
+
+def _fallback_int8_overrides(corpus, out_dir):
+    return [*_beam_joint_overrides(corpus, out_dir),
+            "decoding.cross_kv_quant=true"]
 
 
 def _beam_joint_overrides(corpus, out_dir):
@@ -169,6 +190,10 @@ def test_port_cli_matches_jax_cli(corpus, tmp_path):
 
 def test_port_beam_joint_cli_matches_jax_cli(corpus_ctc, tmp_path):
     _check_cli(corpus_ctc, tmp_path, _beam_joint_overrides)
+
+
+def test_port_fallback_int8_cli_matches_jax_cli(corpus_fallback, tmp_path):
+    _check_cli(corpus_fallback, tmp_path, _fallback_int8_overrides)
 
 
 @pytest.mark.parametrize("decode", sorted(SE_DICOW))

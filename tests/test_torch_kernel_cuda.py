@@ -7,7 +7,9 @@ beam ancestry attention
 cluster size, at the longest cache it takes, and one launch captured in a
 CUDA graph and replayed at other positions), the candidate CTC-psi gather +
 dot (with NaN in the row padding, and captured and replayed on new inputs)
-and the two KV-cache reorder kernels.
+and the two KV-cache reorder kernels. Also the card's side of the plain
+decode paths: the int8 cross-attention against the CPU, the thresholded
+top-k against the stable sort, and the sampler's reproducibility.
 Skips without a GPU; run there with
 ``python -m pytest tests/test_torch_kernel_cuda.py -m cuda``."""
 
@@ -557,3 +559,58 @@ def test_beam_reorder_pallas_reaches_the_kernel(cuda, layout, kernel):
     assert torch.equal(out, cache.index_select(hyp, idx.long()))
     for name in ("kv_reorder_bhtd", "kv_reorder_tbhd"):
         assert launch_counts[name] == before[name] + (name == kernel)
+
+
+# ---------------------------------------------------------------- decode
+# paths in plain PyTorch (no kernel of their own)
+
+
+@pytest.mark.parametrize("n", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_cross_attention_on_the_card_matches_the_cpu(cuda, dtype, n):
+    """The int8 cross-attention at turbo's head shape (20 heads, 1500
+    positions), one query per hypothesis, n beams folded into the query
+    axis: the card against the CPU on the same codes and scales."""
+    from ts_asr_whisper_tpu_torch.models.whisper import (cross_attention,
+                                                         quantize_cross_kv)
+
+    q, k, v = _qkv((2, 20, 1500, 64), torch.float32, "cpu", seed=n)
+    q = q[:, :, :1].repeat(n, 1, 1, 1) * 8.0
+    cross = quantize_cross_kv([(k.to(dtype), v.to(dtype))])[0]
+    ref = cross_attention(q.to(dtype), cross, dtype).float()
+    out = cross_attention(q.to(dtype).to(cuda),
+                          {key: t.to(cuda) for key, t in cross.items()},
+                          dtype)
+    torch.cuda.synchronize()
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(out.float().cpu(), ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("shape,k", [((2, 5 * 51866), 10), ((8, 4096), 10),
+                                     ((16, 2048), 12), ((3, 16), 16)])
+def test_thresholded_topk_on_the_card_equals_the_stable_sort(cuda, shape, k):
+    from ts_asr_whisper_tpu_torch.ops.topk import topk_lax, topk_thresholded
+
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randn(shape, device=cuda, generator=gen)
+    x[:, ::7] = x[:, :1]                 # exact ties across the row
+    x[0, :] = -1e9                       # a row of equal values
+    v, i = topk_thresholded(x, k)
+    v_ref, i_ref = topk_lax(x, k)
+    assert torch.equal(v, v_ref) and torch.equal(i, i_ref)
+
+
+def test_sampler_on_the_card_is_reproducible(cuda):
+    from ts_asr_whisper_tpu_torch.decoding.greedy import sample
+
+    scores = torch.randn(16, 51866, device=cuda)
+    scores[:, ::3] = -torch.inf
+
+    def draw(seed):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        return torch.stack([sample(scores, 0.8, gen) for _ in range(20)])
+
+    a, b, c = draw(3), draw(3), draw(4)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+    assert (a % 3 != 0).all()            # -inf tokens are never drawn

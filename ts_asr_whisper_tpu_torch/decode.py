@@ -5,8 +5,9 @@ the same runner.
 
 Counterpart of the decode part of ts_asr_whisper_tpu/train.py
 (``make_generation_config`` :34-78, ``ModelTrainer._build_eval``,
-``evaluate_dataset``, ``do_eval`` and the ``decode_only`` branch of
-``train``), SE-DiCoW's enrollment cutset union included (train.py:96-99).
+``evaluate_dataset`` with its joint-decode debug printer (:166-169),
+``do_eval`` and the ``decode_only`` branch of ``train``), SE-DiCoW's
+enrollment cutset union included (train.py:96-99).
 Multi-device runs are not ported yet and raise ``NotImplementedError``.
 """
 
@@ -26,6 +27,7 @@ import torch
 from .config import Cfg
 from .data.collators import DataCollator
 from .data.datasets import build_datasets, load_cutsets
+from .decoding.ctc_rescorer import set_joint_debug_decoder
 from .decoding.generation_config import GenerationConfig
 from .decoding.longform import longform_generate
 from .eval import native
@@ -150,6 +152,9 @@ class DecodeRunner:
                          metrics_list=None, model=None) -> Dict[str, float]:
         tok = self.container.tokenizer
         model = model or self.container.model
+        if self.gen_cfg.joint_debug:
+            set_joint_debug_decoder(
+                lambda ids: tok.decode(ids, skip_special_tokens=False))
         upper_to_lower = case_fold_map(tok)
         preds = []  # (batch_index, sequences, label keys) per decoded batch
         bs = self.cfg.training.per_device_eval_batch_size

@@ -19,7 +19,11 @@ finished pool from the top-n candidates, length penalty
 ``score / gen_len**lp``, the early-stopping heuristic, and the CTC rescorer
 state reordered by beam index in every branch. The ``lax.while_loop``
 becomes a Python loop with one host sync per step for its condition. Ties
-are broken as ``lax.top_k`` breaks them, lower index first (ops/topk.py).
+are broken as ``lax.top_k`` breaks them, lower index first (ops/topk.py);
+the candidate top-k over the (B, n * V) scores follows the switch
+``ops/topk.py::set_topk_impl`` (beam.py:152-154). Under
+``gen_cfg.cross_kv_quant`` the cross-KV is int8 (models/whisper.py::
+quantize_cross_kv) on every cache strategy.
 """
 
 from __future__ import annotations
@@ -29,9 +33,9 @@ from typing import NamedTuple
 import torch
 
 from ..models.dicow import DiCoW
-from ..models.whisper import get_kv_cache_layout
+from ..models.whisper import get_kv_cache_layout, quantize_cross_kv
 from ..ops.reorder import beam_reorder, get_reorder_impl
-from ..ops.topk import topk_large
+from ..ops.topk import topk_large, topk_lax
 from .generation_config import GenerationConfig
 from .logits_process import make_logits_processor
 
@@ -68,8 +72,6 @@ def beam_search(
     ctc_scorer=None,
     ctc_state=None,
 ) -> BeamOutput:
-    if gen_cfg.cross_kv_quant:
-        raise NotImplementedError("int8 cross-KV is not ported yet")
     dec = model.decoder
     dev = encoder_hidden.device
     b, prompt_len = init_tokens.shape
@@ -87,6 +89,8 @@ def beam_search(
                                     device=dev)
     # cross-KV per audio row: the n beams share it (query fold)
     cross_kv = dec.precompute_cross_kv(encoder_hidden)
+    if gen_cfg.cross_kv_quant:
+        cross_kv = quantize_cross_kv(cross_kv)
     cache = dec.init_kv_cache(bb, total_len, dev)
     w_logits = dec.embed_tokens.weight.to(dec.cfg.compute_dtype).float()
 
@@ -156,7 +160,7 @@ def beam_search(
         merged_lens = torch.cat(
             [fin_lengths, torch.full((b, k2), cur_len + 1, dtype=torch.long,
                                      device=dev)], dim=1)
-        best = topk_large(merged_scores, n)[1]                 # (B, n)
+        best = topk_lax(merged_scores, n)[1]                   # (B, n)
         fin_scores = merged_scores.gather(1, best)
         fin_tokens = _take(merged_seqs, best)
         fin_lengths = merged_lens.gather(1, best)
@@ -164,7 +168,7 @@ def beam_search(
 
         # next n running beams among the non-eos candidates
         run_scores = torch.where(is_eos, NEG, top_scores)
-        order = topk_large(run_scores, n)[1]                   # (B, n)
+        order = topk_lax(run_scores, n)[1]                     # (B, n)
         running_scores = run_scores.gather(1, order)
         chosen_beam = src_beam.gather(1, order)
         chosen_tok = next_tok.gather(1, order)

@@ -13,7 +13,10 @@ kernel on the card) or ``'matmul'`` (the full-vocab beam-shared matmul of
 ops/ctc_prefix.py). ``'auto'`` takes the kernel on CUDA and the matmul on the
 CPU, as the JAX package takes its kernel on TPU only. Single-hypothesis
 decode keeps the top-K id list and the closed form of ctc_prefix_scores.
-The per-step debug dump (``joint_debug``) is not ported.
+With ``debug`` every rescore prints the reference's per-step table (top 10
+by attention, by CTC with timestamps blanked, fused, and the CTC EOS score;
+ctc_rescorer.py:146-186, 313-323): the few small tensors it needs are
+fetched to the host only then.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from ..ops.ctc_prefix import (
     kth_largest_keys,
 )
 from ..ops.psi_gather import ctc_psi_candidates, padded_posterior
-from ..ops.topk import topk_large
+from ..ops.topk import topk_lax
 
 
 class CTCState(NamedTuple):
@@ -130,6 +133,52 @@ def candidate_mask(scores: torch.Tensor, k: int, eos: int,
     return mask
 
 
+# host-side token decoder for the joint-decode debug dump; None prints ids
+_DEBUG_DECODER = None
+
+
+def set_joint_debug_decoder(decode_fn) -> None:
+    """Register ``decode_fn(ids) -> str`` (e.g. tokenizer.decode) so the
+    debug dump prints token text instead of raw ids."""
+    global _DEBUG_DECODER
+    _DEBUG_DECODER = decode_fn
+
+
+def _debug_print(step_tokens, cur_len, att_v, att_i, ctc_v, ctc_i,
+                 fused_v, fused_i, ctc_eos):
+    """Host callback: the reference's ``analyze_predictions`` table
+    (decoding.py:214-266) — per hypothesis, the top-k candidates by
+    attention, CTC and fused score, plus the running prefix and the CTC
+    EOS score."""
+    def tok_str(i):
+        if _DEBUG_DECODER is None:
+            return str(int(i))
+        try:
+            return repr(_DEBUG_DECODER([int(i)]))
+        except Exception:
+            return str(int(i))
+
+    print("\n" + "#" * 100)
+    for b in range(att_i.shape[0]):
+        print("-" * 80)
+        print(f"HYPOTHESIS {b}")
+        prefix = [int(t) for t in step_tokens[b][: int(cur_len)]]
+        if _DEBUG_DECODER is not None:
+            try:
+                prefix = _DEBUG_DECODER(prefix)
+            except Exception:
+                pass
+        print(f"\nPREFIX:\n{prefix}")
+        for title, ids, vals in (("ATT_TOKENS", att_i[b], att_v[b]),
+                                 ("CTC_TOKENS", ctc_i[b], ctc_v[b]),
+                                 ("NEXT_TOKENS", fused_i[b], fused_v[b])):
+            cells = [f"{tok_str(i)}:{float(v):.2f}"
+                     for i, v in zip(ids, vals)]
+            print(f"\n{title}: " + " | ".join(cells))
+        print(f"\nCTC_EOS: {float(ctc_eos[b]):.2f}\n")
+    print("#" * 100, flush=True)
+
+
 @dataclass(frozen=True)
 class CTCRescorer:
     """Static config of joint CTC rescoring (ctc_rescorer.py:188-200)."""
@@ -140,6 +189,9 @@ class CTCRescorer:
     ctc_weight: float
     k: int = 500
     prefix_len: int = 3      # len(tokenizer.prefix_tokens)
+    # the per-step top-k att/CTC/fused dump (reference analyze_predictions,
+    # decoding.py:214-266); no cost when False
+    debug: bool = False
 
     @property
     def k_pad(self) -> int:
@@ -192,8 +244,8 @@ class CTCRescorer:
             cand_ids = cand_mask
         else:
             # top-K text candidates (+ EOS always, in the K-th slot)
-            _, cand_ids = topk_large(scores[:, : self.timestamp_begin],
-                                     self.k)
+            _, cand_ids = topk_lax(scores[:, : self.timestamp_begin],
+                                   self.k)
             has_eos = (cand_ids == self.eos_id).any(dim=1)
             cand_ids = cand_ids.clone()
             cand_ids[:, self.k - 1] = torch.where(
@@ -214,6 +266,17 @@ class CTCRescorer:
         ctc_scores = tmp - state.score_prev[:, None]
         fused = (1.0 - self.ctc_weight) * scores \
             + self.ctc_weight * ctc_scores
+        if self.debug:
+            dk = 10
+            att = topk_lax(scores, dk)
+            # the reference blanks timestamps before the CTC top-k
+            # (decoding.py:221)
+            ctc = topk_lax(torch.where(is_ts, LOG_ZERO, ctc_scores), dk)
+            top_fused = topk_lax(fused, dk)
+            host = [t.cpu().numpy() for t in (
+                tokens, att[0], att[1], ctc[0], ctc[1], top_fused[0],
+                top_fused[1], ctc_scores[:, self.eos_id])]
+            _debug_print(host[0], cur_len, *host[1:])
         return fused, state._replace(cand_ids=cand_ids,
                                      decoded_len=decoded_len,
                                      last_label=last_label)

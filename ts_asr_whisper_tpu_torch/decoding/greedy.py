@@ -1,20 +1,25 @@
 """Greedy KV-cached decode of one 30 s window batch.
 
-Counterpart of ts_asr_whisper_tpu/decoding/greedy.py at temperature 0: the
+Counterpart of ts_asr_whisper_tpu/decoding/greedy.py: the
 ``lax.while_loop`` becomes a Python loop over a preallocated token buffer
 that stops once every row has emitted EOS (one host sync per step). Cross-
-attention K/V are computed once per window; the self-attention cache is
-written in place. With a CTC rescorer (decoding/ctc_rescorer.py) the joint
-CTC scores join the attention scores inside the same loop (greedy.py:106-124).
+attention K/V are computed once per window (int8 under
+``gen_cfg.cross_kv_quant``); the self-attention cache is written in place.
+With a CTC rescorer (decoding/ctc_rescorer.py) the joint CTC scores join the
+attention scores inside the same loop (greedy.py:106-124). A temperature
+above 0 samples each token from softmax(scores / T) (the fallback retries of
+decoding/longform.py); with ``alignment_slots`` the loop collects the
+alignment heads' cross-attention probabilities for token timestamps.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..models.dicow import DiCoW
+from ..models.whisper import quantize_cross_kv
 from .generation_config import GenerationConfig
 from .logits_process import make_logits_processor
 
@@ -24,6 +29,20 @@ class GreedyOutput(NamedTuple):
     lengths: torch.Tensor         # (B,) valid token count incl. prompt
     sum_logprobs: torch.Tensor    # (B,) sum of selected-token logprobs
     no_speech_probs: torch.Tensor  # (B,) P(no-speech token) at the SOT step
+    # token-timestamp mode only: the alignment heads' cross-attention
+    # probabilities per generated-token query, (B, S, max_new, T_enc) fp32;
+    # row j = query position prompt_len + j (greedy.py:36-40)
+    alignment_weights: Optional[torch.Tensor] = None
+
+
+def sample(scores: torch.Tensor, temperature: float,
+           generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from softmax(scores / temperature), on the device
+    of ``scores`` with ``generator`` (greedy.py:112-117 draws with
+    ``jax.random.categorical``; the same distribution, other bits). Tokens
+    at -inf have probability 0 and are never drawn."""
+    probs = torch.softmax(scores / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
 @torch.no_grad()
@@ -36,9 +55,10 @@ def greedy_decode(
     force_full_length: bool = False,  # benchmarking: ignore the EOS exit
     ctc_scorer=None,                # optional: decoding/ctc_rescorer.py
     ctc_state=None,
+    temperature: float = 0.0,       # > 0: sampling (fallback retries)
+    generator: Optional[torch.Generator] = None,  # the sampler's, on dev
+    alignment_slots: Optional[torch.Tensor] = None,  # (L, S, H) token-ts
 ) -> GreedyOutput:
-    if gen_cfg.cross_kv_quant:
-        raise NotImplementedError("int8 cross-KV is not ported yet")
     dec = model.decoder
     dev = encoder_hidden.device
     b, prompt_len = init_tokens.shape
@@ -46,13 +66,23 @@ def greedy_decode(
     pad = gen_cfg.pad_token_id
     eos = gen_cfg.eos_token_id
     no_speech_token = gen_cfg.no_timestamps_token_id - 1
+    if temperature > 0.0 and generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
 
     process = make_logits_processor(gen_cfg, begin_index=prompt_len,
                                     device=dev)
     cross_kv = dec.precompute_cross_kv(encoder_hidden)
+    if gen_cfg.cross_kv_quant:
+        cross_kv = quantize_cross_kv(cross_kv)
     cache = dec.init_kv_cache(b, total_len, dev)
     # logits weight cast once per window, not once per step
     w_logits = dec.embed_tokens.weight.to(dec.cfg.compute_dtype).float()
+    align_buf = None
+    if alignment_slots is not None:
+        alignment_slots = alignment_slots.to(dev)
+        align_buf = torch.zeros(
+            (b, alignment_slots.shape[1], max_new_tokens,
+             encoder_hidden.shape[1]), dtype=torch.float32, device=dev)
 
     tokens = torch.full((b, total_len), pad, dtype=torch.long, device=dev)
     tokens[:, :prompt_len] = init_tokens.to(dev)
@@ -75,7 +105,11 @@ def greedy_decode(
             scores = torch.log_softmax(scores, dim=-1)
             scores, ctc_state = ctc_scorer.rescore(ctc_state, tokens,
                                                    cur_len, scores)
-        next_tok = torch.where(finished, pad, scores.argmax(dim=-1))
+        if temperature > 0.0:
+            next_tok = sample(scores, temperature, generator)
+        else:
+            next_tok = scores.argmax(dim=-1)
+        next_tok = torch.where(finished, pad, next_tok)
         logp = torch.log_softmax(scores, dim=-1)
         tok_logp = logp.gather(1, next_tok[:, None])[:, 0]
         sum_logprobs += torch.where(finished, 0.0, tok_logp)
@@ -83,8 +117,16 @@ def greedy_decode(
             ctc_state = ctc_scorer.update_state(ctc_state, next_tok, None)
         tokens[:, cur_len] = next_tok
         finished |= next_tok == eos
-        hidden = dec.decoder_cached(next_tok[:, None], cur_len, cache,
-                                    cross_kv)
+        if align_buf is None:
+            hidden = dec.decoder_cached(next_tok[:, None], cur_len, cache,
+                                        cross_kv)
+        else:
+            hidden, probs = dec.decoder_cached(
+                next_tok[:, None], cur_len, cache, cross_kv,
+                alignment_slots=alignment_slots)
+            # the query row of position cur_len (generated token
+            # cur_len - prompt_len)
+            align_buf[:, :, cur_len - prompt_len] = probs[:, :, 0]
         logits = dec.lm_logits(hidden[:, -1], w_logits)
         cur_len += 1
 
@@ -95,4 +137,5 @@ def greedy_decode(
                             is_eos.int().argmax(dim=1),
                             torch.full((b,), cur_len - 1, device=dev))
     lengths = torch.clamp(first_eos + 1, max=cur_len)
-    return GreedyOutput(tokens, lengths, sum_logprobs, no_speech_probs)
+    return GreedyOutput(tokens, lengths, sum_logprobs, no_speech_probs,
+                        align_buf)

@@ -1,15 +1,18 @@
 """Long-form (arbitrary-length) decoding of the port: the host-driven seek
 loop around the per-window encoder and greedy or beam decode.
 
-Counterpart of ts_asr_whisper_tpu/decoding/longform.py:342-683, device side
+Counterpart of ts_asr_whisper_tpu/decoding/longform.py:276-683, device side
 in torch: the full-recording features and STNO stay on the device for the
 whole call and each window is sliced there; active rows are compacted into a
 power-of-2 bucket padded with duplicate rows (the first occurrence wins);
 one device->host fetch per window batch; language detection on the first
 window; SE-DiCoW's fixed 30 s enrollment window, gathered per bucket with the
 rows; joint CTC rescoring from the window's CTC logits; beam search; the
-no-speech skip. Refused with ``NotImplementedError``: temperature-fallback
-retries, token timestamps, int8 cross-KV and the joint-decode debug dump.
+no-speech skip; temperature-fallback retries (sampled greedy, seeded per
+window); token timestamps (greedy: DTW over the alignment heads'
+cross-attention, decoding/token_timestamps.py); int8 cross-KV. Refused as
+the JAX package refuses them: token timestamps under beam search, without
+``alignment_heads``, or with the int8 cache.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from .beam import beam_search
 from .ctc_rescorer import CTCRescorer, init_ctc_state
 from .generation_config import GenerationConfig
 from .greedy import greedy_decode
+from .token_timestamps import (alignment_slots_from_heads,
+                               extract_token_timestamps)
 
 # ---------------------------------------------------------------------------
 # host helpers: a jax-free copy of ts_asr_whisper_tpu/decoding/longform.py:
@@ -244,6 +249,39 @@ def fix_timestamps_from_segmentation(
 
 
 # ---------------------------------------------------------------------------
+# fallback quality checks (host): a jax-free copy of
+# ts_asr_whisper_tpu/decoding/longform.py:279-307
+# ---------------------------------------------------------------------------
+
+
+def compression_ratio(tokens, vocab_size: int) -> float:
+    """HF WhisperGenerationMixin._retrieve_compression_ratio: zlib ratio over
+    fixed-width little-endian token bytes (width = int(log2(V)/8)+1). The
+    reference's fallback checks run on token bytes, not decoded text."""
+    import math
+    import zlib
+
+    width = int(math.log2(vocab_size) / 8) + 1
+    data = b"".join(int(t).to_bytes(width, "little") for t in tokens)
+    return len(data) / len(zlib.compress(data))
+
+
+def _needs_fallback(tokens, avg_logprob, gen_cfg: GenerationConfig,
+                    vocab_size: int) -> bool:
+    """HF generate_with_fallback quality checks (_need_fallback): high zlib
+    compression ratio (repetition) or low average logprob triggers a
+    re-decode at the next temperature."""
+    if gen_cfg.compression_ratio_threshold is not None and len(tokens):
+        if compression_ratio(tokens, vocab_size) \
+                > gen_cfg.compression_ratio_threshold:
+            return True
+    if gen_cfg.logprob_threshold is not None \
+            and avg_logprob < gen_cfg.logprob_threshold:
+        return True
+    return False
+
+
+# ---------------------------------------------------------------------------
 # device side
 # ---------------------------------------------------------------------------
 
@@ -286,20 +324,47 @@ def detect_language(model: DiCoW, gen_cfg: GenerationConfig,
 
 
 def check_scope(gen_cfg: GenerationConfig) -> None:
-    """Refuse what this slice of the port does not run."""
-    if gen_cfg.joint_debug:
+    """Refuse what the JAX package refuses (longform.py:379-395,
+    whisper.py:542-543): token timestamps under beam search, without
+    alignment heads, or over the int8 cross-KV cache."""
+    if not gen_cfg.return_token_timestamps:
+        return
+    if gen_cfg.num_beams > 1:
         raise NotImplementedError(
-            "the joint-decode debug dump (joint_debug) is not ported yet")
-    if gen_cfg.return_token_timestamps:
-        raise NotImplementedError("token timestamps are not ported yet")
+            "return_token_timestamps is implemented for the greedy path"
+            " (num_beams == 1); see decoding/token_timestamps.py")
+    if not gen_cfg.alignment_heads:
+        raise ValueError(
+            "return_token_timestamps needs generation-config "
+            "alignment_heads (HF raises the same requirement)")
     if gen_cfg.cross_kv_quant:
-        raise NotImplementedError("int8 cross-KV is not ported yet")
-    temps = tuple(gen_cfg.temperature or (0.0,))
-    if len(temps) > 1 and (gen_cfg.logprob_threshold is not None
-                           or gen_cfg.compression_ratio_threshold
-                           is not None):
-        raise NotImplementedError(
-            "temperature-fallback retries are not ported yet")
+        raise ValueError(
+            "alignment collection needs the exact cross-KV cache")
+
+
+def _fetch(out, lp_value: torch.Tensor, rows: np.ndarray):
+    """ONE device->host transfer of a decode's token ids and fp32 scores
+    (exact in float64), and a second for the alignment weights when the
+    decode collected them. Yields (batch row, sequence, length, logprob
+    value, no-speech prob, weights or None) for the first occurrence of each
+    batch row of the bucket (padded duplicates are ignored)."""
+    seq_len = out.sequences.shape[1]
+    fetched = torch.cat([
+        out.sequences.double(), out.lengths[:, None].double(),
+        lp_value[:, None].double(),
+        out.no_speech_probs[:, None].double()], dim=1).cpu().numpy()
+    weights = getattr(out, "alignment_weights", None)
+    if weights is not None:
+        weights = weights.cpu().numpy()
+    seen = set()
+    for j, i in enumerate(rows):
+        if i in seen:
+            continue
+        seen.add(i)
+        yield (i, fetched[j, :seq_len].astype(np.int64),
+               int(fetched[j, seq_len]), fetched[j, seq_len + 1],
+               fetched[j, seq_len + 2],
+               None if weights is None else weights[j])
 
 
 def _next_pow2(n: int, cap: int) -> int:
@@ -322,10 +387,14 @@ def longform_generate(
     return_segments: bool = False,
     detect_lang: bool = False,      # fill forced_decoder_ids[:, 1]
     upper_to_lower: Optional[np.ndarray] = None,  # (2, n) CTC case-fold map
+    token_ts_num_frames: Optional[np.ndarray] = None,  # (B,) valid mel
+    # frames for the token-timestamp DTW crop (HF's num_frames; None = no
+    # crop)
 ) -> LongformOutput:
     """Batched long-form transcription on the model's device. Returns a
     LongformOutput whose ``sequences`` carry re-blocked 0-30 s timestamps
-    (ready for the SegLST parser)."""
+    (ready for the SegLST parser); with ``gen_cfg.return_token_timestamps``
+    its segments carry per-token times."""
     check_scope(gen_cfg)
     cfg = model.cfg
     dev = next(model.parameters()).device
@@ -337,6 +406,15 @@ def longform_generate(
     max_new = gen_cfg.max_length - prompt_len
     all_segments: List[List[Segment]] = [[] for _ in range(b)]
     ts_begin = gen_cfg.timestamp_begin
+    temps = tuple(gen_cfg.temperature or (0.0,))
+    fallback = len(temps) > 1 and (
+        gen_cfg.logprob_threshold is not None
+        or gen_cfg.compression_ratio_threshold is not None)
+    alignment_slots = None
+    if gen_cfg.return_token_timestamps:
+        alignment_slots = torch.as_tensor(alignment_slots_from_heads(
+            gen_cfg.alignment_heads, cfg.decoder_layers,
+            cfg.decoder_attention_heads), device=dev)
 
     # full recordings on the device for the whole call, zero-padded by one
     # window so that every seek slice is in bounds
@@ -395,9 +473,11 @@ def longform_generate(
             ctc_scorer = CTCRescorer(
                 blank_id=blank, eos_id=gen_cfg.eos_token_id,
                 timestamp_begin=ts_begin, ctc_weight=gen_cfg.ctc_weight,
-                k=min(500, ts_begin - 1), prefix_len=prompt_len)
+                k=min(500, ts_begin - 1), prefix_len=prompt_len,
+                debug=gen_cfg.joint_debug)
+            enc_logits = model.encoder.ctc_logits(enc)
             ctc_state = init_ctc_state(
-                model.encoder.ctc_logits(enc), blank, upper_to_lower,
+                enc_logits, blank, upper_to_lower,
                 num_beams=max(gen_cfg.num_beams, 1), k=ctc_scorer.k,
                 p_bf16=gen_cfg.ctc_p_bf16, psi_impl=gen_cfg.ctc_psi_impl)
         if gen_cfg.num_beams > 1:
@@ -408,43 +488,93 @@ def longform_generate(
             lp_value = out.scores
         else:
             out = greedy_decode(model, gen_cfg, enc, forced_rows, max_new,
-                                ctc_scorer=ctc_scorer, ctc_state=ctc_state)
+                                ctc_scorer=ctc_scorer, ctc_state=ctc_state,
+                                alignment_slots=alignment_slots)
             lp_value = out.sum_logprobs
 
-        # ONE device->host transfer per window batch: token ids and fp32
-        # scores are exact in float64
-        seq_len = out.sequences.shape[1]
-        fetched = torch.cat([
-            out.sequences.double(), out.lengths[:, None].double(),
-            lp_value[:, None].double(),
-            out.no_speech_probs[:, None].double()], dim=1).cpu().numpy()
-        sequences = np.zeros((b, seq_len), dtype=np.int64)
+        sequences = np.zeros((b, out.sequences.shape[1]), dtype=np.int64)
         lengths = np.zeros(b, dtype=np.int64)
         lp_values = np.zeros(b, dtype=np.float64)
         no_speech = np.zeros(b, dtype=np.float64)
-        seen_rows = set()
-        for j, i in enumerate(rows):
-            if i in seen_rows:
-                continue  # padded duplicates: the first occurrence wins
-            seen_rows.add(i)
-            sequences[i] = fetched[j, :seq_len].astype(np.int64)
-            lengths[i] = int(fetched[j, seq_len])
-            lp_values[i] = fetched[j, seq_len + 1]
-            no_speech[i] = fetched[j, seq_len + 2]
-
-        # no-speech skip (HF _need_fallback): silence iff the SOT-step
-        # no-speech prob exceeds its threshold AND the decode is
-        # low-confidence; both thresholds must be set
+        weights = None
+        if alignment_slots is not None:
+            weights = np.zeros(
+                (b, *out.alignment_weights.shape[1:]), np.float32)
+        for i, seq, n, lp, ns, w in _fetch(out, lp_value, rows):
+            sequences[i], lengths[i], lp_values[i], no_speech[i] = \
+                seq, n, lp, ns
+            if w is not None:
+                weights[i] = w
         if gen_cfg.num_beams > 1:
             avg_lp = lp_values
         else:
             avg_lp = lp_values / np.maximum(lengths - prompt_len, 1)
-        if (gen_cfg.no_speech_threshold is None
-                or gen_cfg.logprob_threshold is None):
-            skip_silence = np.zeros(b, dtype=bool)
-        else:
-            skip_silence = ((no_speech > gen_cfg.no_speech_threshold)
-                            & (avg_lp < gen_cfg.logprob_threshold))
+
+        def skip_mask() -> np.ndarray:
+            # no-speech skip (HF _need_fallback): silence iff the SOT-step
+            # no-speech prob exceeds its threshold AND the decode is
+            # low-confidence; both thresholds must be set
+            if (gen_cfg.no_speech_threshold is None
+                    or gen_cfg.logprob_threshold is None):
+                return np.zeros(b, dtype=bool)
+            return ((no_speech > gen_cfg.no_speech_threshold)
+                    & (avg_lp < gen_cfg.logprob_threshold))
+
+        # temperature fallback (longform.py:573-641, HF
+        # generate_with_fallback): rows failing the quality checks re-decode
+        # at the next temperature, greedy (HF forces one beam for sampling)
+        # even after a beam first pass; the whole bucket re-runs and only
+        # the failing rows take the retry's result. Rows under the
+        # no-speech skip never fall back.
+        if fallback:
+            ctc_state_retry = ctc_state
+            if ctc_scorer is not None and gen_cfg.num_beams > 1:
+                # retries are single-hypothesis: a fresh per-row CTC state
+                ctc_state_retry = init_ctc_state(
+                    enc_logits, blank, upper_to_lower, num_beams=1,
+                    k=ctc_scorer.k)
+            for t_i, temp in enumerate(temps[1:], start=1):
+                skip_now = skip_mask()
+                needs = np.zeros(b, dtype=bool)
+                for i in np.unique(rows):
+                    if skip_now[i]:
+                        continue
+                    needs[i] = _needs_fallback(
+                        sequences[i, prompt_len: int(lengths[i])],
+                        avg_lp[i], gen_cfg, cfg.vocab_size)
+                if not needs.any():
+                    break
+                gen = torch.Generator(device=dev).manual_seed(
+                    int(seek.sum()) + t_i)
+                retry = greedy_decode(
+                    model, gen_cfg, enc, forced_rows, max_new,
+                    ctc_scorer=ctc_scorer, ctc_state=ctc_state_retry,
+                    temperature=float(temp), generator=gen,
+                    alignment_slots=alignment_slots)
+                for i, seq, n, lp, ns, w in _fetch(
+                        retry, retry.sum_logprobs, rows):
+                    if not needs[i]:
+                        continue
+                    sequences[i], lengths[i], no_speech[i] = seq, n, ns
+                    # fp32 sum over an int, as the JAX package divides
+                    avg_lp[i] = np.float32(lp) / max(n - prompt_len, 1)
+                    if w is not None:
+                        weights[i] = w
+
+        skip_silence = skip_mask()
+
+        token_ts = None
+        if weights is not None:
+            # HF extracts per seek window over the active rows, with
+            # num_frames = the caller's num_frames - seek
+            act = np.where(active)[0]
+            nf = None
+            if token_ts_num_frames is not None:
+                nf = (np.asarray(token_ts_num_frames, np.int64) - seek)[act]
+            ts_rows = extract_token_timestamps(
+                weights[act], prompt_len, lengths[act], num_frames=nf,
+                median_filter_width=gen_cfg.median_filter_width)
+            token_ts = {int(i): ts_rows[k] for k, i in enumerate(act)}
 
         for i in range(b):
             if not active[i]:
@@ -460,6 +590,8 @@ def longform_generate(
             time_offset = float(seek[i]) * TIME_PRECISION / INPUT_STRIDE
             segments, offset = retrieve_segment(
                 seq, ts_begin, int(seek_num_frames[i]), time_offset,
+                token_timestamps=(token_ts[i] if token_ts is not None
+                                  else None),
                 prompt_len=prompt_len)
             all_segments[i].extend(segments)
             seek[i] += offset

@@ -1,6 +1,6 @@
 """Whisper encoder/decoder core of the port, as ``nn.Module``s.
 
-Counterpart of ts_asr_whisper_tpu/models/whisper.py:40-300, 360-661. Module
+Counterpart of ts_asr_whisper_tpu/models/whisper.py:40-661. Module
 and parameter names follow HF ``WhisperForConditionalGeneration``, so a
 DiCoW state dict loads strictly. Per-layer weights live in
 ``nn.ModuleList``s (the JAX package stacks them on a leading axis for
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,7 +32,9 @@ from ..training.lora import merged_call as lora_merged_call
 from .config import DiCoWConfig
 
 KVCache = Dict[str, torch.Tensor]
-CrossKV = List[Tuple[torch.Tensor, torch.Tensor]]
+# per decoder layer: the exact (k, v), or the int8 dict of quantize_cross_kv
+CrossKV = List[Union[Tuple[torch.Tensor, torch.Tensor],
+                     Dict[str, torch.Tensor]]]
 
 # Self-attention KV-cache layout (whisper.py:360-377): 'bhtd'
 # (L, B, H, T, hd), the default and the only one of the append-only
@@ -204,23 +206,57 @@ class DecoderLayer(EncoderLayer):
         return x + self.mlp(self.final_layer_norm(x), dtype)
 
 
-def cross_attention(q: torch.Tensor, ck: torch.Tensor,
-                    cv: torch.Tensor) -> torch.Tensor:
-    """Decoder cross-attention, q pre-scaled, (B_q, H, T_q, hd). When q's
+def quantize_cross_kv(cross_kv: CrossKV) -> CrossKV:
+    """Symmetric per-row int8 quantization of the cross-attention cache
+    (whisper.py:301-325): per (batch, head, position) row, scale =
+    max|x| / 127 clamped at 1e-8, codes round(x / scale) (half to even, as
+    ``jnp.round``) clipped to [-127, 127]. Lossy: opt-in through
+    ``GenerationConfig.cross_kv_quant``."""
+    def quant(x):
+        xf = x.float()
+        scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                            min=1e-8)
+        q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+        return q, scale
+
+    out = []
+    for k, v in cross_kv:
+        k_q, k_scale = quant(k)
+        v_q, v_scale = quant(v)
+        out.append({"k_q": k_q, "k_scale": k_scale, "v_q": v_q,
+                    "v_scale": v_scale})
+    return out
+
+
+def cross_attention(q: torch.Tensor, cross, dtype) -> torch.Tensor:
+    """Decoder cross-attention, q pre-scaled, (B_q, H, T_q, hd), over one
+    layer's exact ``(k, v)`` or int8 dict (whisper.py:327-359). When q's
     batch is a multiple n of the cross-KV batch (beam search: n hypotheses
     per audio row), the n beams fold into the query axis instead of the K/V
-    being repeated per beam (whisper.py:327-346): same math, since cross-
-    attention has no position mask, and the cross-KV read stays at audio-
-    batch size."""
-    b_kv, bq = ck.shape[0], q.shape[0]
-    if bq == b_kv:
-        return plain_sdpa(q, ck, cv)
-    n = bq // b_kv
-    _, h, tq, hd = q.shape
-    qf = q.reshape(b_kv, n, h, tq, hd).transpose(1, 2) \
-        .reshape(b_kv, h, n * tq, hd)
-    out = plain_sdpa(qf, ck, cv).reshape(b_kv, h, n, tq, hd).transpose(1, 2)
-    return out.reshape(bq, h, tq, hd)
+    being repeated per beam: same math, since cross-attention has no
+    position mask, and the cross-KV read stays at audio-batch size.
+
+    The int8 cache folds its scales into the attention: the fp32 scores
+    are multiplied by ``k_scale`` per key row, the probabilities by
+    ``v_scale`` before their cast to the compute dtype and ``p.v``. Eager
+    PyTorch materialises the codes cast to the compute dtype."""
+    quant = isinstance(cross, dict)
+    b_kv, bq = (cross["k_q"] if quant else cross[0]).shape[0], q.shape[0]
+    if bq != b_kv:
+        n = bq // b_kv
+        _, h, tq, hd = q.shape
+        qf = q.reshape(b_kv, n, h, tq, hd).transpose(1, 2) \
+            .reshape(b_kv, h, n * tq, hd)
+        out = cross_attention(qf, cross, dtype)
+        out = out.reshape(b_kv, h, n, tq, hd).transpose(1, 2)
+        return out.reshape(bq, h, tq, hd)
+    if not quant:
+        return plain_sdpa(q, *cross)
+    scores = torch.matmul(q.float(), cross["k_q"].float().transpose(-1, -2))
+    scores = scores * cross["k_scale"][..., 0][:, :, None, :]
+    probs = torch.softmax(scores, dim=-1)
+    pv = probs * cross["v_scale"][..., 0][:, :, None, :]
+    return torch.matmul(pv.to(dtype), cross["v_q"].to(dtype))
 
 
 def sinusoidal_positions(length: int, d_model: int) -> np.ndarray:
@@ -305,13 +341,21 @@ class WhisperDecoder(nn.Module):
 
     def decoder_cached(self, input_ids: torch.Tensor, pos: int,
                        kv_cache: KVCache, cross_kv: CrossKV,
-                       beam_src: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       beam_src: Optional[torch.Tensor] = None,
+                       alignment_slots: Optional[torch.Tensor] = None):
         """Run T_new tokens at positions pos.. through the decoder, writing
         their K/V into ``kv_cache`` (current layout) in place
-        (whisper.py:396-549 without alignment_slots). Returns the final
-        hidden (B, T_new, D). ``cross_kv`` may hold B / n audio rows for B =
-        n beams per row.
+        (whisper.py:396-549). Returns the final hidden (B, T_new, D).
+        ``cross_kv`` may hold B / n audio rows for B = n beams per row.
+
+        With ``alignment_slots`` (L, S, H), the one-hot head selection of
+        token-timestamp collection, it returns (hidden, probs): the
+        cross-attention probabilities (B, S, T_new, T_enc) in fp32 of the S
+        alignment slots. Each layer takes softmax(q.k^T) in fp32 over its
+        exact cache and adds the slots it owns (its rows of the selection;
+        the other rows are zero) into the sum (whisper.py:516-549). The
+        int8 cache cannot serve it (ValueError, as the JAX package
+        asserts).
 
         ``beam_src`` applies a beam permutation inside the step: each
         layer's cache rows are first replaced, in place, by rows
@@ -322,9 +366,13 @@ class WhisperDecoder(nn.Module):
         scores masked by finfo(float32).min in every layout; the keys past
         pos + T_new are left out instead of masked, which changes no value:
         a masked key's probability is exactly 0."""
+        if alignment_slots is not None and isinstance(cross_kv[0], dict):
+            raise ValueError(
+                "alignment collection needs the exact cross-KV cache")
         dt = self.cfg.compute_dtype
         layout = _KV_LAYOUT
         t_new = input_ids.shape[-1]
+        probs = None
         end = pos + t_new
         x = self.embed(input_ids, pos)
         key_pos = torch.arange(end, device=x.device)
@@ -348,17 +396,28 @@ class WhisperDecoder(nn.Module):
             vs[:, :, pos:end] = v_new
             attn = plain_sdpa(q, ks[:, :, :end], vs[:, :, :end], self_mask)
             x = x + linear(layer.self_attn.out_proj, merge_heads(attn), dt)
-            x = self._cross_and_mlp(layer, x, cross_kv[li])
-        return self.layer_norm(x)
+            sel = None if alignment_slots is None else alignment_slots[li]
+            x, sel_probs = self._cross_and_mlp(layer, x, cross_kv[li], sel)
+            if sel_probs is not None:
+                probs = sel_probs if probs is None else probs + sel_probs
+        x = self.layer_norm(x)
+        return x if alignment_slots is None else (x, probs)
 
-    def _cross_and_mlp(self, layer: DecoderLayer, x: torch.Tensor,
-                       cross) -> torch.Tensor:
+    def _cross_and_mlp(self, layer: DecoderLayer, x: torch.Tensor, cross,
+                       sel: Optional[torch.Tensor] = None):
+        """Cross-attention and MLP blocks of one layer: (x, None), or with
+        the (S, H) selection ``sel`` (x, its slots' probabilities)."""
         dt = self.cfg.compute_dtype
         h = layer.encoder_attn_layer_norm(x)
         q = layer.encoder_attn.query(h, dt)
-        attn = cross_attention(q, *cross)
+        attn = cross_attention(q, cross, dt)
         x = x + linear(layer.encoder_attn.out_proj, merge_heads(attn), dt)
-        return x + layer.mlp(layer.final_layer_norm(x), dt)
+        x = x + layer.mlp(layer.final_layer_norm(x), dt)
+        if sel is None:
+            return x, None
+        scores = torch.matmul(q.float(), cross[0].float().transpose(-1, -2))
+        return x, torch.einsum("sh,bhqt->bsqt", sel.float(),
+                               torch.softmax(scores, dim=-1))
 
     def decoder_cached_ancestry(self, input_ids: torch.Tensor, pos: int,
                                 kv_cache: KVCache, cross_kv: CrossKV,
@@ -390,5 +449,5 @@ class WhisperDecoder(nn.Module):
             cache_k[:, :, pos] = k_new[:, :, 0]
             cache_v[:, :, pos] = v_new[:, :, 0]
             x = x + linear(layer.self_attn.out_proj, merge_heads(attn), dt)
-            x = self._cross_and_mlp(layer, x, cross_kv[li])
+            x = self._cross_and_mlp(layer, x, cross_kv[li])[0]
         return self.layer_norm(x)
