@@ -117,6 +117,28 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      windows of 30 s at 128 mels, within tests/test_mel.py's tolerance, ms
      per window of each; the beam step's candidate top-10 over (2, 5 x
      51866), thresholded against the stable sort, equal and timed.
+ 20. the dicow_v3 fine-tune of phase 9 (its corpus, recipe and micro-batches
+     of 4, with the augmentations off: they draw from unseeded global
+     generators) through the CLI under torchrun, one rank over NCCL,
+     once with DDP and once with FSDP2 (training.shard_params=true):
+     the losses of the 2 micro-batches before the first update within
+     1e-5 of an unwrapped run's, the later ones within the tolerance set by
+     two unwrapped runs of this process (10 x their largest relative
+     difference, at least 1e-6), the flash forward and backward in every
+     encoder layer and the CTC head of every micro-batch; ms per update
+     and peak memory beside phase 9's;
+ 21. the same fine-tune on two ranks that share the card over gloo (each
+     rank on cuda:0, 2 x micro-batch 2 on the rows of the unwrapped runs'
+     micro-batches of 4), through the preheat -> base unfreeze: both ranks
+     log the same losses, within the same tolerance of the unwrapped run,
+     and end with the same checksums of every trainable parameter; the
+     all-reduce bytes per micro-batch;
+ 22. rank-sharded long-form eval: dicow_v3_greedy on phase 7's recordings at
+     per_device_eval_batch_size 4 through the CLI on two ranks sharing the
+     card over gloo: rank 0 decodes batches 0 and 2, rank 1 batches 1 and
+     3, the flash forward runs in both; the hypotheses and metrics equal
+     this process's decode at batch 4, and only rank 0 writes the outputs.
+     Phases 20-22 read wall time only.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing here imports jax or the JAX package.
 """
@@ -126,7 +148,9 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -213,6 +237,23 @@ TS_HEADS = ((2, 1), (2, 7), (2, 13), (3, 4), (3, 10), (3, 16))
 # device log-mel against the host featurizer: tests/test_mel.py's
 # tolerance
 MEL_ATOL, MEL_RTOL = 5e-5, 1e-5
+# phases 20-21 compare losses step by step: the collator draws its STNO and
+# SpecAug augmentations from numpy's and Python's unseeded global
+# generators (data/augmentations.py), so those runs leave them off
+NO_AUG = ("aug.stno_gaussian_noise_prob=0.0",
+          "aug.stno_segment_augment_prob=0.0", "aug.spec_aug_prob=0.0")
+# the loss tolerances of phases 20-21. The micro-batches before the first
+# update are a forward of the same rows and weights: DP_FORWARD_TOL
+# (relative; they have come out bit-identical at micro-batch 2 and 4). The
+# later ones: DP_LOSS_FACTOR times the largest relative difference of two
+# unwrapped runs in this process (the bf16 backward's dq is not
+# bit-reproducible and Adam carries its noise into the later losses; one
+# pair samples that spread once, and ranks at micro-batch 2 also sum their
+# weight gradients in another order), at least DP_LOSS_FLOOR
+DP_FORWARD_TOL = 1e-5
+DP_LOSS_FACTOR, DP_LOSS_FLOOR = 10.0, 1e-6
+# wall-time limit of one torchrun launch of phases 20-22
+CHILD_TIMEOUT = 420
 
 
 def log(msg: str) -> None:
@@ -993,7 +1034,8 @@ def run_decode(dev, tag: str, overrides, durations, gen_json=None) -> dict:
             f"times, want {want} ({per_call} x encoder calls + CTC-head "
             "calls)")
     return {"runner": runner, "launches": launches, "steps": steps,
-            "calls": calls, "wall": wall, "hyps": sorted(hyps)}
+            "calls": calls, "wall": wall, "hyps": sorted(hyps),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
 def phase_decode(dev) -> dict:
@@ -1170,16 +1212,7 @@ def phase_train(dev) -> dict:
     manifest = write_corpus(work / "corpus", [30.0] * 8, seed=1)
     model_dir = _turbo_dir(work)
     out_dir = work / "exp"
-    cfg = load_config([
-        "+train=dicow_v3", f"model.whisper_model={model_dir}",
-        "model.reinit_encoder_from=null", f"data.train_cutsets=[{manifest}]",
-        "data.dev_cutsets=[]", "data.eval_cutsets=[]",
-        "data.dataset_weights=null", "aug.musan_root=null",
-        "training.overall_batch_size=8",
-        "training.gradient_accumulation_steps=2", "training.max_steps=8",
-        "training.use_fddt_only_n_steps=4", "training.warmup_steps=0",
-        "training.eval_strategy=no", "training.save_strategy=no",
-        "training.logging_steps=1", f"training.output_dir={out_dir}"])
+    cfg = load_config(train_overrides(manifest, model_dir, out_dir))
     t = cfg.training
     k = t.gradient_accumulation_steps
     t0 = time.perf_counter()
@@ -1276,6 +1309,22 @@ def phase_train(dev) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "ms_per_update": loop * 1e3 / updates,
             "peak_gib": peak}
+
+
+def train_overrides(manifest, model_dir, out_dir) -> list:
+    """Phase 9's fine-tune: +train=dicow_v3 without its env-var paths, a
+    global batch of 8 rows in micro-batches of 8 / (world x 2) with
+    accumulation 2, 8 micro-batches (4 preheat), no evals."""
+    return ["+train=dicow_v3", f"model.whisper_model={model_dir}",
+            "model.reinit_encoder_from=null",
+            f"data.train_cutsets=[{manifest}]",
+            "data.dev_cutsets=[]", "data.eval_cutsets=[]",
+            "data.dataset_weights=null", "aug.musan_root=null",
+            "training.overall_batch_size=8",
+            "training.gradient_accumulation_steps=2", "training.max_steps=8",
+            "training.use_fddt_only_n_steps=4", "training.warmup_steps=0",
+            "training.eval_strategy=no", "training.save_strategy=no",
+            "training.logging_steps=1", f"training.output_dir={out_dir}"]
 
 
 def _turbo_dir(work: Path) -> Path:
@@ -2252,6 +2301,367 @@ def phase_mel_topk(dev) -> None:
                     for n, (ms, d) in res.items()))
 
 
+# -- phases 20-22: data parallelism through the CLI under torchrun ----------
+
+
+def _record_trainer(record: dict):
+    """Patch the Trainer to record what every rank logs, its loop's wall
+    time and peak memory, the bytes of the gradients it all-reduces per
+    micro-batch in each phase and, at the end, a checksum of every
+    trainable parameter (the sum of its fp32 bit patterns and the sum of
+    them weighted by position, this rank's shard under FSDP2); returns
+    the function that restores it."""
+    from ts_asr_whisper_tpu_torch.parallel.mesh import local
+    from ts_asr_whisper_tpu_torch.training import trainer as trainer_mod
+
+    loop = trainer_mod.Trainer.train
+    unfreeze = trainer_mod.Trainer._maybe_unfreeze
+
+    def grad_bytes(trainer):
+        return sum(local(p).numel() * 4 for p in trainer.tx.params)
+
+    def watched_unfreeze(self):
+        unfreeze(self)
+        record["grad_bytes"][self.state.phase] = grad_bytes(self)
+
+    def train(self, it):
+        stream = self.metrics_logger
+
+        class Recorder:
+            def log(self, metrics, step):
+                record["logged"].append(
+                    {"step": step, **{k: float(v)
+                                      for k, v in metrics.items()}})
+                stream.log(metrics, step)
+
+            def close(self):
+                stream.close()
+
+        self.metrics_logger = Recorder()
+        record["grad_bytes"] = {self.state.phase: grad_bytes(self)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        record["loop_start"] = t1
+        out = loop(self, it)
+        torch.cuda.synchronize()
+        record["loop"] = time.perf_counter() - t1
+        record["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        record["base_updates"] = getattr(self.tx, "inner", self.tx).count
+        with torch.no_grad():
+            sums = []
+            for p in self.tx.params:
+                bits = local(p).detach().reshape(-1).view(torch.int32) \
+                    .to(torch.int64)
+                pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+                sums += [bits.sum(), (bits * pos).sum()]
+            record["checksums"] = torch.stack(sums).tolist()
+        return out
+
+    trainer_mod.Trainer.train = train
+    trainer_mod.Trainer._maybe_unfreeze = watched_unfreeze
+
+    def restore():
+        trainer_mod.Trainer.train = loop
+        trainer_mod.Trainer._maybe_unfreeze = unfreeze
+    return restore
+
+
+def child(spec_path: str) -> int:
+    """One rank of phases 20-22, started by torchrun: the CLI's main with
+    the spec's argv, the launch counts set to 0 just before and read just
+    after, the eval batches this rank collates and its encoder calls
+    counted; its record goes to <out>/rank<RANK>.json."""
+    from ts_asr_whisper_tpu_torch import __main__ as cli
+    from ts_asr_whisper_tpu_torch import decode, kernels
+    from ts_asr_whisper_tpu_torch.models.dicow import DiCoWEncoder
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ.get("RANK", "0"))
+    record = {"logged": [], "decoded": [], "encoder_calls": 0,
+              "entered": time.time()}
+    _record_trainer(record)
+    eval_batches = decode.eval_batches
+
+    def counted_batches(*args, **kwargs):
+        for bi, batch in eval_batches(*args, **kwargs):
+            record["decoded"].append(bi)
+            yield bi, batch
+
+    def count_encoder(module, args, output):
+        if isinstance(module, DiCoWEncoder):
+            record["encoder_calls"] += 1
+
+    do_eval = decode.DecodeRunner.do_eval
+
+    def timed_eval(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = do_eval(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        record["eval"] = record.get("eval", 0.0) + time.perf_counter() - t1
+        return out
+
+    decode.eval_batches = counted_batches
+    decode.DecodeRunner.do_eval = timed_eval
+    hook = torch.nn.modules.module.register_module_forward_hook(count_encoder)
+    for name in kernels.launch_counts:
+        kernels.launch_counts[name] = 0
+    t0 = time.perf_counter()
+    try:
+        metrics = cli.main(spec["argv"])
+    finally:
+        hook.remove()
+    if "loop_start" in record:
+        # the CLI's set-up before the training loop, and what follows it
+        # (the HF export)
+        record["setup"] = record.pop("loop_start") - t0
+        record["after"] = time.perf_counter() - t0 - record["setup"] \
+            - record["loop"]
+    record.update(wall=time.perf_counter() - t0, returned=time.time(),
+                  launches=dict(kernels.launch_counts),
+                  metrics={k: float(v) for k, v in (metrics or {}).items()})
+    (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(record))
+    return 0
+
+
+def run_ranks(tag: str, argv: list, nproc: int) -> list:
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    nproc chip_smoke.py --child <spec>``: the CLI on ``nproc`` ranks; the
+    launcher and its ranks are killed at CHILD_TIMEOUT. Returns the
+    ranks' records; fails on any non-zero return code."""
+    out = WORK / "ranks" / tag
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    spec = out / "spec.json"
+    spec.write_text(json.dumps({"argv": argv, "out": str(out)}))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
+           "--child", str(spec)]
+    t0, launched = time.perf_counter(), time.time()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text = proc.communicate(timeout=CHILD_TIMEOUT)[0]
+    except subprocess.TimeoutExpired:
+        text = f"timed out after {CHILD_TIMEOUT} s"
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    (out / "log.txt").write_text(text)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] torchrun rc={proc.returncode}:\n"
+                             f"{text[-6000:]}")
+    recs = [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(nproc)]
+    log(f"[{tag}] {nproc} rank(s) through torchrun, wall {wall:.1f} s: "
+        f"{recs[0]['entered'] - launched:.1f} s to start (torchrun, "
+        f"python, imports), {recs[0]['wall']:.1f} s in the CLI, "
+        f"{launched + wall - recs[0]['returned']:.1f} s to exit")
+    return recs
+
+
+def _unwrapped_runs(dev, overrides: list, n: int = 2) -> list:
+    """``n`` runs of the fine-tune's training loop in this process,
+    unwrapped, from the same initial weights (ModelTrainer's, no export):
+    the records of ``_record_trainer`` with the launch counts of each."""
+    from ts_asr_whisper_tpu_torch import kernels
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.train import ModelTrainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    mt = ModelTrainer(load_config(overrides), dev)
+    start = {k: v.to("cpu", copy=True)
+             for k, v in mt.model.state_dict().items()}
+    num_prefix = len(mt.container.tokenizer.prefix_tokens) - 1
+    records = []
+    for i in range(n):
+        mt.model.load_state_dict(start)
+        record = {"logged": []}
+        restore = _record_trainer(record)
+        for name in kernels.launch_counts:
+            kernels.launch_counts[name] = 0
+        try:
+            mt._fit(num_prefix, 0, None, None, None, None)
+        finally:
+            restore()
+        record["launches"] = dict(kernels.launch_counts)
+        log(f"[unwrapped {i + 1}] losses "
+            f"{[round(r['loss'], 6) for r in record['logged']]}")
+        records.append(record)
+    del mt, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
+def _max_rel(a: list, b: list, key: str = "loss") -> float:
+    if [r["step"] for r in a] != [r["step"] for r in b]:
+        raise AssertionError(f"logged steps differ: {[r['step'] for r in a]}"
+                             f" vs {[r['step'] for r in b]}")
+    return max(abs(x[key] - y[key]) / abs(y[key]) for x, y in zip(a, b))
+
+
+def _check_train_rank(tag: str, rec: dict, ref: dict, tol: float,
+                      per_batch: int, steps: int) -> None:
+    diff = _max_rel(rec["logged"], ref["logged"])
+    # accumulation 2: the first update follows micro-batch 2
+    fwd = _max_rel(rec["logged"][:2], ref["logged"][:2])
+    want = per_batch * steps
+    got = tuple(rec["launches"][k] for k in ("flash_attn_fwd",
+                                             "flash_attn_bwd"))
+    # 4 preheat micro-batches, then 4 base ones, in updates of 2; the
+    # optimizer built at the unfreeze counts the base updates
+    if len(rec["logged"]) != steps or rec["base_updates"] != 2:
+        raise AssertionError(f"[{tag}] {len(rec['logged'])} logged steps, "
+                             f"{rec['base_updates']} base updates")
+    if diff > tol or fwd > DP_FORWARD_TOL or not all(
+            math.isfinite(r["loss"]) for r in rec["logged"]):
+        raise AssertionError(
+            f"[{tag}] losses {[r['loss'] for r in rec['logged']]} vs "
+            f"unwrapped {[r['loss'] for r in ref['logged']]}: relative "
+            f"difference {fwd:.3g} before the first update (tolerance "
+            f"{DP_FORWARD_TOL:.3g}), {diff:.3g} in all (tolerance "
+            f"{tol:.3g})")
+    if got != (want, want):
+        raise AssertionError(f"[{tag}] flash launches fwd/bwd {got}, want "
+                             f"{want} ({per_batch} x {steps} micro-batches)")
+    parts = (f", CLI set-up {rec['setup']:.1f} s, export {rec['after']:.1f} s"
+             if "setup" in rec else "")
+    log(f"[{tag}] losses within {fwd:.3g} of the unwrapped run's before "
+        f"the first update, {diff:.3g} in all (tolerance {tol:.3g}); "
+        f"flash fwd / bwd {got[0]} / {got[1]}; "
+        f"training loop {rec['loop']:.2f} s, "
+        f"{rec['loop'] * 1e3 / (steps // 2):.0f} ms per update, peak "
+        f"{rec['peak']:.1f} GiB{parts}")
+
+
+def phase_dp_train(dev, p9: dict) -> dict:
+    """Phases 20 and 21 (see the module docstring)."""
+    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
+
+    work = WORK / "dp_train"
+    shutil.rmtree(work, ignore_errors=True)
+    manifest = write_corpus(work / "corpus", [30.0] * 8, seed=1)  # phase 9's
+    model_dir = _turbo_dir(work)
+    mc = TURBO["encoder_layers"] + 1  # + the CTC head's self-attention
+    steps = 8
+
+    def overrides(name):
+        return [*train_overrides(manifest, model_dir, work / name), *NO_AUG]
+
+    ref = _unwrapped_runs(dev, overrides("unwrapped"))
+    spread = _max_rel(ref[1]["logged"], ref[0]["logged"])
+    tol = max(DP_LOSS_FACTOR * spread, DP_LOSS_FLOOR)
+    log(f"[dp] two unwrapped runs: largest relative loss difference "
+        f"{spread:.3g} -> tolerance {tol:.3g}; ms per update "
+        f"{ref[0]['loop'] * 1e3 / (steps // 2):.0f} / "
+        f"{ref[1]['loop'] * 1e3 / (steps // 2):.0f}, peak "
+        f"{ref[0]['peak']:.1f} / {ref[1]['peak']:.1f} GiB; phase 9 (with "
+        f"augmentations) {p9['ms_per_update']:.0f} ms per update, peak "
+        f"{p9['peak_gib']:.1f} GiB")
+    for r in ref:
+        _check_train_rank("unwrapped", r, ref[0], tol, mc, steps)
+
+    paths = {}
+    for shard, tag in ((False, "ddp_nccl"), (True, "fsdp_nccl")):
+        rec, = run_ranks(tag, ["--device", "cuda", *overrides(tag),
+                               f"training.shard_params={str(shard).lower()}"],
+                         nproc=1)
+        _check_train_rank(tag, rec, ref[0], tol, mc, steps)
+        paths[f"dicow_v3_train_{tag}"] = rec["launches"]
+
+    # phase 21: two ranks on one card over gloo, micro-batches of 2
+    recs = run_ranks("ddp_gloo_2ranks", ["--device", "cuda:0", "--backend",
+                                         "gloo", *overrides("gloo")], nproc=2)
+    if recs[0]["logged"] != recs[1]["logged"]:
+        raise AssertionError(f"[ddp_gloo_2ranks] the ranks logged "
+                             f"{recs[0]['logged']} and {recs[1]['logged']}")
+    for rank, rec in enumerate(recs):
+        _check_train_rank(f"ddp_gloo rank {rank}", rec, ref[0], tol, mc,
+                          steps)
+    if recs[0]["checksums"] != recs[1]["checksums"]:
+        bad = sum(a != b for a, b in zip(recs[0]["checksums"],
+                                         recs[1]["checksums"]))
+        raise AssertionError(f"[ddp_gloo_2ranks] {bad} parameter checksums "
+                             "differ between the ranks")
+    gb = recs[0]["grad_bytes"]
+    log(f"[ddp_gloo_2ranks] {len(recs[0]['checksums']) // 2} trainable "
+        f"tensors with equal checksums on both ranks; all-reduce per "
+        f"micro-batch: preheat {gb['preheat'] / 1e6:.1f} MB, base "
+        f"{gb['base'] / 1e9:.3f} GB of fp32 gradients (+ 4 B token count)")
+    paths["dicow_v3_train_ddp_gloo_2ranks"] = {
+        k: recs[0]["launches"][k] + recs[1]["launches"][k]
+        for k in recs[0]["launches"]}
+    shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
+def phase_sharded_eval(dev) -> dict:
+    """Phase 22 (see the module docstring)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    overrides = ["+decode=dicow_v3_greedy",
+                 "training.per_device_eval_batch_size=4"]
+    # phase 7's recordings, decoded here at batch 4
+    single = run_decode(dev, "greedy_b4", overrides, [60.0] * 8)
+    manifest = single.pop("runner").cfg.data.eval_cutsets[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = WORK / "greedy_b4"
+    name = "eval_cutset"
+    out = work / "exp_ranks"
+    argv = ["--device", "cuda:0", "--backend", "gloo", *overrides,
+            f"model.whisper_model={work / 'model'}",
+            f"data.eval_cutsets=[{manifest}]",
+            "training.generation_max_length=128",
+            "training.save_visualizations=false", f"training.output_dir={out}"]
+    recs = run_ranks("greedy_sharded_2ranks", argv, nproc=2)
+    ref_metrics = single["metrics"]
+    for rank, rec in enumerate(recs):
+        if rec["decoded"] != [rank, rank + 2]:
+            raise AssertionError(f"[sharded eval] rank {rank} decoded "
+                                 f"batches {rec['decoded']}")
+        fwd = rec["launches"]["flash_attn_fwd"]
+        if not rec["encoder_calls"] or \
+                fwd != TURBO["encoder_layers"] * rec["encoder_calls"]:
+            raise AssertionError(f"[sharded eval] rank {rank}: flash fwd "
+                                 f"{fwd}, {rec['encoder_calls']} encoder "
+                                 "calls")
+        if rec["metrics"] != ref_metrics:
+            raise AssertionError(f"[sharded eval] rank {rank} metrics "
+                                 f"{rec['metrics']} != one process's "
+                                 f"{ref_metrics}")
+    hyps = sorted((out / f"test_{name}").rglob("tcp_wer_hyp.json"))
+    base = work / "exp"
+    if [h.relative_to(out) for h in hyps] != \
+            [h.relative_to(base) for h in single["hyps"]]:
+        raise AssertionError(f"[sharded eval] hypothesis files {hyps}")
+    for a, b in zip(hyps, single["hyps"]):
+        if json.loads(a.read_text()) != json.loads(b.read_text()):
+            raise AssertionError(f"[sharded eval] {a} differs from {b}")
+    csvs = list(out.rglob("all_session_wer.csv"))
+    if len(csvs) != 1:
+        raise AssertionError(f"[sharded eval] session CSVs {csvs}")
+    fwd = [rec["launches"]["flash_attn_fwd"] for rec in recs]
+    log(f"[sharded eval] rank 0 decoded batches {recs[0]['decoded']}, rank 1 "
+        f"{recs[1]['decoded']}; flash fwd {fwd[0]} / {fwd[1]}; "
+        f"{len(hyps)} hypothesis "
+        f"files and the metrics equal one process's at batch 4; decode and "
+        f"scoring {recs[0]['eval']:.1f} / {recs[1]['eval']:.1f} s a rank "
+        f"({single['wall']:.1f} s in one process); the CLI's wall "
+        f"{recs[0]['wall']:.1f} / {recs[1]['wall']:.1f} s a rank")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"dicow_v3_greedy_b4": single["launches"],
+            "dicow_v3_greedy_sharded_2ranks": {
+                k: recs[0]["launches"][k] + recs[1]["launches"][k]
+                for k in recs[0]["launches"]}}
+
+
 def main() -> int:
     kind = phase_card()
     dev = torch.device("cuda", 0)
@@ -2265,7 +2675,7 @@ def main() -> int:
     phase_mel_topk(dev)
     paths = {"dicow_v3_greedy": phase_decode(dev),
              "dicow_v3_beam_joint": phase_beam_decode(dev)["launches"],
-             "dicow_v3_train": phase_train(dev)["launches"],
+             "dicow_v3_train": (p9 := phase_train(dev))["launches"],
              "se_dicow_beam_joint": phase_se_dicow(
                  dev, "bhtd", [60.0] * 2)["launches"],
              "se_dicow_beam_joint_tbhd": phase_se_dicow(
@@ -2279,6 +2689,8 @@ def main() -> int:
     paths["dicow_v3_beam_joint_fallback_int8"] = phase_fallback_int8(
         dev)["launches"]
     paths["dicow_v3_greedy_token_ts"] = phase_token_ts(dev)["launches"]
+    paths.update(phase_dp_train(dev, p9))
+    paths.update(phase_sharded_eval(dev))
     from ts_asr_whisper_tpu_torch.kernels import KERNEL_SOURCES
 
     csrc = "ts_asr_whisper_tpu_torch/kernels/csrc"
@@ -2306,4 +2718,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(child(sys.argv[2]) if sys.argv[1:2] == ["--child"] else main())

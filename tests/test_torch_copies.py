@@ -94,7 +94,9 @@ def test_port_imports_with_jax_blocked():
     assert {"ts_asr_whisper_tpu_torch.decode",
             "ts_asr_whisper_tpu_torch.train",
             "ts_asr_whisper_tpu_torch.pretrain_encoder",
-            "ts_asr_whisper_tpu_torch.training.lora"} <= loaded
+            "ts_asr_whisper_tpu_torch.training.lora",
+            "ts_asr_whisper_tpu_torch.parallel.dist",
+            "ts_asr_whisper_tpu_torch.parallel.mesh"} <= loaded
     jax_pkg = {m for m in loaded if m == "ts_asr_whisper_tpu"
                or m.startswith("ts_asr_whisper_tpu.")}
     assert not jax_pkg
@@ -103,6 +105,7 @@ def test_port_imports_with_jax_blocked():
 def test_port_sources_have_no_jax_import():
     pat = re.compile(r"^\s*(import jax|from jax)\b", re.M)
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert PORT / "parallel" / "dist.py" in files
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders
 
@@ -558,6 +561,27 @@ def test_flac_copy_decodes_the_same_samples(channels, bps):
     np.testing.assert_array_equal(out[0], ref[0])
     assert out[1:] == ref[1:] == (16000, bps)
     np.testing.assert_array_equal(out[0].astype(np.int64), pcm)
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 10])
+@pytest.mark.parametrize("rank, world", [(0, 1), (0, 2), (1, 2), (2, 3)])
+def test_shard_indices_copy(monkeypatch, n, rank, world):
+    """parallel/dist.py::shard_indices_by_process, the round-robin shard of
+    JAX parallel/dist.py:104-109 with the rank and world size of the
+    process group in place of jax's process index and count."""
+    import jax
+
+    from ts_asr_whisper_tpu.parallel import dist as jdist
+    from ts_asr_whisper_tpu_torch.parallel import dist as tdist
+
+    assert inspect.getdoc(tdist.shard_indices_by_process) == \
+        inspect.getdoc(jdist.shard_indices_by_process)
+    monkeypatch.setattr(jax, "process_index", lambda: rank)
+    monkeypatch.setattr(jax, "process_count", lambda: world)
+    monkeypatch.setattr(tdist, "get_rank", lambda: rank)
+    monkeypatch.setattr(tdist, "world_size", lambda: world)
+    assert tdist.shard_indices_by_process(n) == \
+        jdist.shard_indices_by_process(n)
 
 
 def test_metrics_logger_copy_is_unchanged(tmp_path):

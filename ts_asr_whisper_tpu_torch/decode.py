@@ -1,21 +1,24 @@
 """Decode orchestration of the port: model container -> eval datasets ->
-long-form greedy or beam joint-CTC decode -> SegLST -> tcpWER, single
-process, one device. The training entry point (train.py) evaluates through
-the same runner.
+long-form greedy or beam joint-CTC decode -> SegLST -> tcpWER, one device
+per rank. The training entry point (train.py) evaluates through the same
+runner.
 
 Counterpart of the decode part of ts_asr_whisper_tpu/train.py
 (``make_generation_config`` :34-78, ``ModelTrainer._build_eval``,
 ``evaluate_dataset`` with its joint-decode debug printer (:166-169),
 ``do_eval`` and the ``decode_only`` branch of ``train``), SE-DiCoW's
-enrollment cutset union included (train.py:96-99).
-Multi-device runs are not ported yet and raise ``NotImplementedError``.
+enrollment cutset union included (train.py:96-99). Under torchrun the
+eval batches are sharded round-robin over the ranks, the predictions
+gathered, scored on rank 0 alone (which writes every output file) and the
+metrics broadcast (train.py:171-243); each rank decodes on its own device,
+as the JAX package's single-process mesh decode holds one row shard per
+chip (longform.py:397-409).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-import math
 import os
 from functools import reduce
 from pathlib import Path
@@ -33,6 +36,8 @@ from .decoding.longform import longform_generate
 from .eval import native
 from .eval.metrics import compute_longform_metrics
 from .models.containers import WhisperContainer
+from .parallel import dist as pdist
+from .parallel.mesh import check_mesh
 from .training.dataloader import eval_batches
 from .txt_norm import get_text_norm
 from .utils.logging_def import get_logger
@@ -81,11 +86,30 @@ def make_generation_config(container: WhisperContainer, cfg: Cfg,
     return GenerationConfig(**kw)
 
 
-def check_scope(cfg: Cfg) -> None:
-    """Refuse the parts of a config that the port lacks."""
+def check_scope(cfg: Cfg, world: Optional[int] = None) -> None:
+    """Refuse the parts of a config that the port lacks, for a run over
+    ``world`` ranks (default: this process group's size): a mesh other
+    than one ``data`` axis over every rank (parallel/mesh.py), and, at a
+    world above 1, what runs on one device only."""
     t = cfg.training
-    if t.mesh_shape and math.prod(t.mesh_shape) > 1:
-        raise NotImplementedError("multi-device runs are not ported yet")
+    world = pdist.world_size() if world is None else world
+    check_mesh(t.mesh_shape, t.mesh_axis_names, world)
+    if world == 1:
+        return
+    if t.pretrain_encoder:
+        raise NotImplementedError(
+            "encoder pre-training runs on one device: the JAX package gives "
+            "it no mesh and no process awareness (pretrain_encoder.py)")
+    if t.auto_find_batch_size and not t.decode_only:
+        raise NotImplementedError(
+            "training.auto_find_batch_size at a world above 1: an out-of-"
+            "memory error on one rank leaves the others waiting in the "
+            "gradient all-reduce; set per_device_train_batch_size instead")
+    if t.use_lora and t.shard_params and not t.decode_only:
+        raise NotImplementedError(
+            "training.use_lora with training.shard_params: the LoRA merge "
+            "writes W + BA into weights that FSDP2 shards; use "
+            "shard_params=false (DDP)")
 
 
 def scoring_backend() -> str:
@@ -151,15 +175,18 @@ class DecodeRunner:
     def evaluate_dataset(self, dataset, output_dir: str,
                          metrics_list=None, model=None) -> Dict[str, float]:
         tok = self.container.tokenizer
-        model = model or self.container.model
+        model = self.container.model if model is None else model
         if self.gen_cfg.joint_debug:
             set_joint_debug_decoder(
                 lambda ids: tok.decode(ids, skip_special_tokens=False))
         upper_to_lower = case_fold_map(tok)
         preds = []  # (batch_index, sequences, label keys) per decoded batch
         bs = self.cfg.training.per_device_eval_batch_size
+        n_proc = pdist.world_size()
         for bi, batch in eval_batches(dataset, self.collator, bs,
-                                      pad_to_full=True):
+                                      pad_to_full=True,
+                                      batch_offset=pdist.get_rank(),
+                                      batch_stride=n_proc):
             forced = batch.get("forced_decoder_ids")
             # no language from the dataset -> detection on the first window
             detect = forced is None and bool(self.gen_cfg.lang_ids)
@@ -180,23 +207,33 @@ class DecodeRunner:
                 batch_keys.append(tok.decode(row, skip_special_tokens=True))
             preds.append((bi, [np.asarray(s) for s in out.sequences],
                           batch_keys))
+        if n_proc > 1:
+            # every rank's predictions, rank 0 scores, the metrics go to
+            # every rank (train.py:222-243)
+            preds = [part for rank in pdist.gather_from_processes(preds)
+                     for part in rank]
         preds.sort(key=lambda p: p[0])
-        return compute_longform_metrics(
-            [s for _, ps, _ in preds for s in ps],
-            [k for _, _, ks in preds for k in ks],
-            dataset, tok, output_dir, self.eval_text_norm,
-            metrics_list=metrics_list or self.cfg.training.eval_metrics_list,
-            save_visualizations=self.cfg.training.save_visualizations)
+        res = None
+        if pdist.is_zero_rank():
+            res = compute_longform_metrics(
+                [s for _, ps, _ in preds for s in ps],
+                [k for _, _, ks in preds for k in ks],
+                dataset, tok, output_dir, self.eval_text_norm,
+                metrics_list=(metrics_list
+                              or self.cfg.training.eval_metrics_list),
+                save_visualizations=self.cfg.training.save_visualizations)
+        return pdist.broadcast_from_main(res)
 
     def do_eval(self, datasets: Dict[str, object], step: int = 0,
-                split: str = "test") -> Dict[str, float]:
+                split: str = "test", model=None) -> Dict[str, float]:
         """Decode and score each dataset as the JAX package's do_eval
         (train.py:276-311): dev evals during training score
-        ``train_metrics_list``, the final test eval ``eval_metrics_list``."""
+        ``train_metrics_list``, the final test eval ``eval_metrics_list``.
+        ``model``: what to decode, the container's model by default."""
         t = self.cfg.training
         metrics_list = (t.train_metrics_list if split == "dev"
                         else t.eval_metrics_list)
-        model = self.container.model
+        model = self.container.model if model is None else model
         # bf16 eval (train.py:283-291): a decode-only run casts its weights
         # in place; a training run decodes a bf16 copy and keeps its fp32
         # parameters

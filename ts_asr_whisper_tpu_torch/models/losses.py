@@ -54,8 +54,12 @@ def _hard_ce(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def decoder_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
                     upp_labels: Optional[torch.Tensor], cfg: DiCoWConfig,
-                    use_timestamp_smoothing: bool = True) -> torch.Tensor:
-    """Mean over the non-pad tokens of min(loss(lower), loss(upper))."""
+                    use_timestamp_smoothing: bool = True,
+                    n_tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over the non-pad tokens of min(loss(lower), loss(upper)): the
+    token sum over ``n_tokens`` (default: the non-pad tokens of ``labels``;
+    under data parallelism the global batch's, so that this is the rank's
+    share of the global batch's mean)."""
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     tb = cfg.timestamp_begin
     if use_timestamp_smoothing:
@@ -71,7 +75,9 @@ def decoder_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     if upp_labels is not None:
         tok = torch.minimum(tok, token_loss(upp_labels))
     mask = (labels != -100).float()
-    return (tok * mask).sum() / mask.sum().clamp_min(1.0)
+    if n_tokens is None:
+        n_tokens = mask.sum().clamp_min(1.0)
+    return (tok * mask).sum() / n_tokens
 
 
 def left_pack(values: torch.Tensor, keep: torch.Tensor,
@@ -100,16 +106,27 @@ def dicow_loss(dec_logits: torch.Tensor,
                enc_ctc_logits: Optional[torch.Tensor], labels: torch.Tensor,
                upp_labels: Optional[torch.Tensor], cfg: DiCoWConfig,
                num_prefix_tokens: int = 0,
-               use_timestamp_smoothing: bool = True):
-    """Joint loss (1 - w) * CE + w * CTC. Returns (total, dict of parts)."""
+               use_timestamp_smoothing: bool = True,
+               n_tokens: Optional[torch.Tensor] = None, world: int = 1):
+    """Joint loss (1 - w) * CE + w * CTC. Returns (total, dict of parts).
+
+    Data parallelism over ``world`` ranks, each holding the same number of
+    rows: with ``n_tokens`` the global batch's token count, the total and
+    each part are this rank's shares of the global batch's loss (the loss
+    the JAX step takes over the whole batch): summed over the ranks they
+    give it. The CE share is the local token sum over ``n_tokens``, the CTC
+    share the local term over ``world`` under ``ctc_loss_reduction='mean'``
+    (a mean over rows) and the local sum under ``'sum'``."""
     dec_loss = decoder_ce_loss(dec_logits, labels, upp_labels, cfg,
-                               use_timestamp_smoothing)
+                               use_timestamp_smoothing, n_tokens)
     parts = {"dec_loss": dec_loss}
     if cfg.ctc_weight > 0.0 and enc_ctc_logits is not None:
         ctc_labels = prepare_ctc_labels(labels, cfg, num_prefix_tokens)
         ctc = ctc_loss_from_padded_labels(
             enc_ctc_logits, ctc_labels, blank_id=cfg.ctc_vocab_size - 1,
             reduction=cfg.ctc_loss_reduction)
+        if world > 1 and cfg.ctc_loss_reduction == "mean":
+            ctc = ctc / world
         parts["ctc_loss"] = ctc
         total = (1.0 - cfg.ctc_weight) * dec_loss + cfg.ctc_weight * ctc
     else:

@@ -1,13 +1,20 @@
-"""Fine-tune orchestration of the port, one device: container (+ optional
-weight re-init) -> train dataset and collator (SE-DiCoW: with enrollments)
--> Trainer with long-form dev evals, checkpoint and best-model callbacks
+"""Fine-tune orchestration of the port: container (+ optional weight
+re-init) -> train dataset and collator (SE-DiCoW: with enrollments) ->
+Trainer with long-form dev evals, checkpoint and best-model callbacks
 (retried at half the micro-batch on running out of memory with
 ``training.auto_find_batch_size``) -> LoRA merge -> HF export -> final test
 eval.
 
 Counterpart of the train branch of ts_asr_whisper_tpu/train.py
-(``ModelTrainer.__init__`` :82-142, ``_fit`` :314-399, ``train`` :401-490)
-on a mesh of one. Decoding and scoring go through ``decode.DecodeRunner``.
+(``ModelTrainer.__init__`` :82-142, ``_fit`` :314-399, ``train`` :401-490).
+Decoding and scoring go through ``decode.DecodeRunner``. Under torchrun the
+global batch is the micro-batch times the world size, each rank loads its
+local rows of it, the Trainer runs DDP or FSDP2 (parallel/mesh.py), the
+evaluations are sharded over the ranks, and every file of the run
+(checkpoints, ``metrics.jsonl``, ``hf_export/``, the eval outputs,
+``store_src``) is written once, by rank 0. Under FSDP2 a decode reads a
+plain copy of the model with its whole parameters on every rank, as the
+JAX package replicates its parameters for decoding (longform.py:397-402).
 """
 
 from __future__ import annotations
@@ -27,8 +34,10 @@ from .data.datasets import TS_ASR_Dataset, load_cutsets
 from .decode import DecodeRunner, no_tf32
 from .models.containers import WhisperContainer
 from .models.dicow import DiCoW
+from .parallel import dist as pdist
+from .parallel.mesh import full_state_dict, is_sharded, load_full_state_dict
 from .training.checkpoints import (export_hf_checkpoint, restore_checkpoint,
-                                   save_checkpoint)
+                                   save_model_checkpoint)
 from .training.dataloader import DataLoader
 from .training.lora import lora_linears, merge_lora, merged
 from .training.trainer import Trainer, TrainState
@@ -116,6 +125,18 @@ class ModelTrainer:
             logger.info("Re-restored resume checkpoint %s after the OOM "
                         "retry", resume_path)
 
+    def _plain_model(self, model: DiCoW) -> DiCoW:
+        """``model`` itself, or, when FSDP2 shards it, a plain copy in eval
+        mode with its whole parameters on every rank (a collective)."""
+        if not is_sharded(model):
+            return model
+        state = full_state_dict(model, to_cpu=False)
+        with torch.device(self.runner.device):
+            plain = DiCoW(model.cfg, flash=model.encoder.flash)
+        plain.to(self.container.model_config.storage_dtype)
+        plain.load_state_dict(state)
+        return plain.eval()
+
     def _store_run_artifacts(self) -> None:
         """training.store_src: the composed config and a snapshot of the
         package's sources next to the run."""
@@ -143,7 +164,8 @@ class ModelTrainer:
         while True:
             if retry:
                 self._rebuild_model(resume_path)
-            global_bs = t.per_device_train_batch_size  # a mesh of one
+            local_bs = t.per_device_train_batch_size
+            global_bs = local_bs * pdist.world_size()
             spe = len(self.train_dataset) // global_bs or None
             if t.max_steps <= 0:
                 # HF convention: train by epochs; derive the step budget so
@@ -164,28 +186,31 @@ class ModelTrainer:
                 prefetch_factor=t.dataloader_prefetch_factor,
                 worker_type=t.dataloader_worker_type,
                 num_epochs=(None if t.max_steps and t.max_steps > 0
-                            else t.num_train_epochs))
+                            else t.num_train_epochs),
+                # each rank feeds its local rows of every global batch
+                process_index=pdist.get_rank(),
+                process_count=pdist.world_size())
             try:
                 return trainer.train(iter(loader))
             except Exception as e:
                 oom = isinstance(e, torch.OutOfMemoryError) or \
                     "out of memory" in str(e).lower()
-                if not (t.auto_find_batch_size and oom and global_bs > 1):
+                if not (t.auto_find_batch_size and oom and local_bs > 1):
                     raise
             # outside the handler: the traceback no longer holds the
             # failed attempt's tensors
             trainer = loader = None
-            t.per_device_train_batch_size = global_bs // 2
+            t.per_device_train_batch_size = local_bs // 2
             t.gradient_accumulation_steps *= 2
             logger.warning("OOM at per-device batch %d -> retrying with %d "
-                           "(grad accumulation x2)", global_bs,
+                           "(grad accumulation x2)", local_bs,
                            t.per_device_train_batch_size)
             retry = True
 
     def train(self) -> Dict[str, float]:
         t = self.cfg.training
         os.makedirs(t.output_dir, exist_ok=True)
-        if t.store_src:
+        if t.store_src and pdist.is_zero_rank():
             self._store_run_artifacts()
         if t.decode_only:
             return self.runner.run()
@@ -199,6 +224,7 @@ class ModelTrainer:
         start_step = 0
         resume_path = t.resume_from_checkpoint or t.restart_from or None
         if resume_path:
+            # every rank, before the Trainer wraps the model
             state, start_step = restore_checkpoint(str(resume_path))
             self.model.load_state_dict(state["params"])
             logger.info("Resumed params from %s at step %d", resume_path,
@@ -206,27 +232,29 @@ class ModelTrainer:
 
         def eval_fn(model, step):
             # LoRA: the dev decode reads the adapted weights, merged once
-            with merged(model):
-                return self.runner.do_eval(self.dev_datasets, step, "dev")
+            with merged(self._plain_model(model)) as plain:
+                return self.runner.do_eval(self.dev_datasets, step, "dev",
+                                           model=plain)
 
         def checkpoint_fn(model, step):
-            save_checkpoint(os.path.join(t.output_dir, "ckpt"),
-                            model.state_dict(), step=step,
-                            keep=t.save_total_limit)
+            save_model_checkpoint(os.path.join(t.output_dir, "ckpt"), model,
+                                  step=step, keep=t.save_total_limit)
 
         best_dir = os.path.join(t.output_dir, "ckpt_best")
 
         def save_best_fn(model, step):
-            save_checkpoint(best_dir, model.state_dict(), step=step, keep=1)
+            save_model_checkpoint(best_dir, model, step=step, keep=1)
 
         def load_best_fn(model):
             state, _ = restore_checkpoint(best_dir)
-            model.load_state_dict(state["params"])
+            load_full_state_dict(model, state["params"])
 
         state = self._fit(num_prefix, start_step,
                           eval_fn if t.predict_with_generate else None,
                           checkpoint_fn, save_best_fn, load_best_fn,
                           resume_path)
+        # the export and the final eval take a plain model
+        self.runner.container.model = self._plain_model(self.model)
         if any(lora_linears(self.model)):
             # the export and the final eval take the merged weights
             # (train.py:463-468)
@@ -245,10 +273,12 @@ class ModelTrainer:
             "suppress_tokens": list(g.suppress_tokens),
             "begin_suppress_tokens": None,
         }
-        export_hf_checkpoint(self.model.state_dict(),
-                             self.container.model_config,
-                             os.path.join(t.output_dir, "hf_export"),
-                             generation_config=gen_json)
+        if pdist.is_zero_rank():
+            export_hf_checkpoint(self.model.state_dict(),
+                                 self.container.model_config,
+                                 os.path.join(t.output_dir, "hf_export"),
+                                 generation_config=gen_json)
+        pdist.barrier("hf_export")
         if self.eval_datasets and t.predict_with_generate:
             return self.runner.do_eval(self.eval_datasets, state.step, "test")
         return {}

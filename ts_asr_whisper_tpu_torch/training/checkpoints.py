@@ -7,7 +7,9 @@ Counterpart of ts_asr_whisper_tpu/training/checkpoints.py:26-93 with
 newest step, older ones pruned to ``keep``. The export writes
 ``model.safetensors`` under the keys the JAX package's ``params_to_hf``
 writes (the ``DiCoW`` module's ``state_dict`` names, ``proj_out.weight``
-included), plus ``config.json`` and ``generation_config.json``.
+included), plus ``config.json`` and ``generation_config.json``. Under data
+parallelism ``save_model_checkpoint`` writes the whole model once, from
+rank 0.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 
 from ..models.config import DiCoWConfig
+from ..parallel import dist as pdist
+from ..parallel.mesh import full_state_dict
 from ..utils.logging_def import get_logger
 
 logger = get_logger(__name__)
@@ -71,6 +75,17 @@ def save_checkpoint(directory: str, params: Dict[str, torch.Tensor],
     for old in ckpts[:-keep]:
         shutil.rmtree(old, ignore_errors=True)
     return str(path)
+
+
+def save_model_checkpoint(directory: str, model: torch.nn.Module,
+                          step: int = 0, keep: int = 1) -> None:
+    """``save_checkpoint`` of the model's whole state dict, DDP / FSDP2
+    wrapper or not: every rank calls it (FSDP2 gathers the shards), rank 0
+    writes and every rank waits until it has."""
+    state = full_state_dict(model)
+    if pdist.is_zero_rank():
+        save_checkpoint(directory, state, step=step, keep=keep)
+    pdist.barrier("checkpoint")
 
 
 def restore_checkpoint(directory: str, step: Optional[int] = None,

@@ -20,6 +20,11 @@ optax computes it so that the same gradients give the same parameters:
   update count shared by both groups;
 - ``optax.MultiSteps`` for gradient accumulation: a running mean of the k
   micro-batch gradients, and one inner update every k-th micro-batch.
+
+Under FSDP2 (``training.shard_params``) each rank steps on its shards of the
+parameters and gradients as plain tensors, with the same arithmetic; the
+clip reads the norm of the whole gradient, its squared sum added over the
+ranks in one all-reduce (``global_norm(..., group)``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from torch import nn
 
 from ..config import TrainingConfig
+from ..parallel.mesh import local
 from ..utils.observability import global_norm
 
 LABELS = ("preheat", "base")  # the labels that train
@@ -115,13 +121,17 @@ def trainable_mask(model: nn.Module, prefixes_to_preheat: Sequence[str],
 class AdamW:
     """clip_by_global_norm + optax.adamw per label, over the parameters of
     ``groups`` (label -> list of parameters). ``step(grads)`` takes one
-    gradient per parameter, in the order of ``params``."""
+    gradient per parameter, in the order of ``params``: this rank's shard
+    of it when the parameters are sharded over ``group``."""
 
     def __init__(self, groups: Dict[str, List[nn.Parameter]],
-                 cfg: TrainingConfig, lr_multiplier: float):
+                 cfg: TrainingConfig, lr_multiplier: float, group=None):
         self.cfg = cfg
         self.groups = groups
+        self.group = group
         self.params = [p for label in LABELS for p in groups.get(label, ())]
+        # what the update writes: the parameters, or this rank's shards
+        self.local = [local(p) for p in self.params]
         self.schedules = {
             "preheat": make_lr_schedule(cfg, cfg.learning_rate
                                         * lr_multiplier),
@@ -129,8 +139,8 @@ class AdamW:
         mu_dtype = getattr(torch, cfg.adam_mu_dtype) if cfg.adam_mu_dtype \
             else None
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
-                   for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+                   for p in self.local]
+        self.nu = [torch.zeros_like(p) for p in self.local]
         self.count = 0
 
     @torch.no_grad()
@@ -138,7 +148,7 @@ class AdamW:
         cfg = self.cfg
         b1, b2, eps, wd = (cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
                            cfg.weight_decay)
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, self.group)
         clip = not bool(g_norm < cfg.max_grad_norm)
         count_inc = self.count + 1
         # optax computes the bias corrections in fp32
@@ -149,8 +159,8 @@ class AdamW:
         for label in LABELS:
             lr = float(torch.tensor(self.schedules[label](self.count),
                                     dtype=f32))
-            for p in self.groups.get(label, ()):
-                g = grads[i].float()
+            for _ in self.groups.get(label, ()):
+                p, g = self.local[i], grads[i].float()
                 if clip:
                     g = (g / g_norm.to(g.device)) * cfg.max_grad_norm
                 mu = (1 - b1) * g + b1 * self.mu[i].float()
@@ -174,7 +184,7 @@ class MultiSteps:
         self.k = k
         self.mini_step = 0
         self.acc = [torch.zeros_like(p, dtype=torch.float32)
-                    for p in inner.params]
+                    for p in inner.local]
 
     @property
     def params(self) -> List[nn.Parameter]:
@@ -195,11 +205,12 @@ class MultiSteps:
 def build_optimizer(model: nn.Module, cfg: TrainingConfig,
                     prefixes_to_preheat: Sequence[str] = (),
                     frozen_keywords: Sequence[str] = (),
-                    preheat_only: bool = False
+                    preheat_only: bool = False, group=None
                     ) -> Tuple[object, Dict[str, str]]:
     """(optimizer, labels): sets ``requires_grad`` from the labels, builds
     AdamW over the trainable parameters, wrapped in MultiSteps when
-    ``gradient_accumulation_steps`` > 1."""
+    ``gradient_accumulation_steps`` > 1. ``group``: the parameters are
+    sharded over its ranks (FSDP2)."""
     labels = param_labels(model, prefixes_to_preheat, frozen_keywords,
                           preheat_only)
     groups: Dict[str, List[nn.Parameter]] = {}
@@ -208,7 +219,7 @@ def build_optimizer(model: nn.Module, cfg: TrainingConfig,
         if labels[name] != "frozen":
             groups.setdefault(labels[name], []).append(p)
     mult = cfg.fddt_lr_multiplier if cfg.use_custom_optimizer else 1.0
-    tx = AdamW(groups, cfg, mult)
+    tx = AdamW(groups, cfg, mult, group)
     if cfg.gradient_accumulation_steps > 1:
         tx = MultiSteps(tx, cfg.gradient_accumulation_steps)
     return tx, labels

@@ -1,16 +1,27 @@
-"""Trainer of the port: the fine-tune step on one device and the reference's
-training behaviours (two-phase FDDT preheat with a fresh optimizer at the
-unfreeze, gradient accumulation, eval-driven early stopping, checkpoint
-and best-model callbacks).
+"""Trainer of the port: the fine-tune step and the reference's training
+behaviours (two-phase FDDT preheat with a fresh optimizer at the unfreeze,
+gradient accumulation, eval-driven early stopping, checkpoint and
+best-model callbacks), on one device or data-parallel over the ranks of a
+``data`` mesh (parallel/mesh.py: DDP, or FSDP2 under
+``training.shard_params``).
 
-Counterpart of ts_asr_whisper_tpu/training/trainer.py:36-324 without the
-mesh. ``state.step`` counts micro-batches as the JAX trainer's does (each
+Counterpart of ts_asr_whisper_tpu/training/trainer.py:36-324.
+``state.step`` counts micro-batches as the JAX trainer's does (each
 call of its jitted step is one micro-batch under ``optax.MultiSteps``);
 the optimizer's own count, which the learning-rate schedule reads, counts
 updates. Frozen parameters have ``requires_grad`` off, so autograd neither
 computes nor stores their gradients (the JAX step's ``stop_gradient``).
 With ``training.use_lora`` the decoder's q/v projections get LoRA adapters
 (training/lora.py) before the first optimizer is built.
+
+Data parallelism keeps the JAX step's semantics over the global batch: each
+rank's loss is its share of the global batch's loss (models/losses.py:
+its token sum over the all-reduced global token count), taken times the
+world size for the backward since DDP and FSDP2 average the gradients; the
+logged loss and its parts are the global batch's. Every micro-batch
+all-reduces its gradients, as each JAX step does. The DDP wrapper is built
+again at the unfreeze: it registers only the parameters that need a
+gradient when it is built.
 """
 
 from __future__ import annotations
@@ -26,6 +37,9 @@ from ..config import Cfg
 from ..models.config import DiCoWConfig
 from ..models.dicow import DiCoW
 from ..models.losses import dicow_loss
+from ..parallel import dist as pdist
+from ..parallel.mesh import (all_reduce_sum, local, make_mesh, release,
+                             shard_group, unwrap, wrap_model)
 from ..utils.logging_def import get_logger
 from ..utils.observability import (MetricsLogger, global_norm,
                                    module_grad_norms, start_trace,
@@ -56,10 +70,15 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
 
 
 def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
-            batch: Dict[str, torch.Tensor], num_prefix_tokens: int):
+            batch: Dict[str, torch.Tensor], num_prefix_tokens: int,
+            mesh=None):
     """Teacher-forced forward and the joint loss (trainer.py:59-82), with
     SE-DiCoW's enrollment features and STNO when the batch carries them.
-    LoRA adapters merge once in the decoder's forward (training/lora.py)."""
+    LoRA adapters merge once in the decoder's forward (training/lora.py).
+    ``model`` may be a DDP / FSDP2 wrapper over the ``data`` ``mesh``: the
+    CTC head runs on the wrapped model, in the same backward, and the
+    loss and its parts are this rank's shares of the global batch's (one
+    all-reduce of the token count)."""
     labels = batch["labels"].long()
     dec_in = shift_tokens_right(labels, model_cfg.pad_token_id,
                                 model_cfg.decoder_start_token_id)
@@ -68,11 +87,32 @@ def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
                                batch.get("enroll_stno"))
     enc_logits = None
     if model_cfg.ctc_weight > 0.0:
-        enc_logits = model.encoder.ctc_logits(enc_hidden)
+        enc_logits = unwrap(model).encoder.ctc_logits(enc_hidden)
+    n_tokens, world = None, 1
+    if mesh is not None:
+        world = mesh.size()
+        n_tokens = all_reduce_sum((labels != -100).sum().float(),
+                                  mesh.get_group()).clamp_min(1.0)
     upp = batch.get("upp_labels")
     return dicow_loss(logits, enc_logits, labels,
                       upp.long() if upp is not None else None, model_cfg,
-                      num_prefix_tokens=num_prefix_tokens)
+                      num_prefix_tokens=num_prefix_tokens, n_tokens=n_tokens,
+                      world=world)
+
+
+# the parts of the loss that are shares of the global batch's (summed over
+# the ranks when logged); the gradient norm is every rank's alike
+SHARE_KEYS = ("loss", "dec_loss", "ctc_loss")
+
+
+class _NoMetrics:
+    """The metrics stream of a rank other than 0: rank 0 writes it."""
+
+    def log(self, metrics, step):
+        pass
+
+    def close(self):
+        pass
 
 
 @dataclass
@@ -118,7 +158,8 @@ class Trainer:
         self.metrics_logger = MetricsLogger(
             t.output_dir, run_name=t.run_name,
             use_wandb=bool(t.report_to) and "wandb" in str(t.report_to),
-            project=cfg.wandb.project)
+            project=cfg.wandb.project) if pdist.is_zero_rank() \
+            else _NoMetrics()
         self._preheat_steps = t.use_fddt_only_n_steps if t.use_fddt else 0
         self._preheat_epochs = t.use_fddt_only_n_epochs if t.use_fddt else 0
         phase = ("preheat" if (self._preheat_steps > 0
@@ -132,7 +173,16 @@ class Trainer:
                                          t.remat_policy)
         model.train()
         self.state = TrainState(start_step, phase)
+        self.mesh = make_mesh(t.mesh_shape, t.mesh_axis_names,
+                              self.device.type)
+        self.wrapped = None
+        if t.shard_params:
+            # FSDP2 replaces the parameters by their shards, which the
+            # optimizer then holds
+            wrap_model(model, self.mesh, shard_params=True)
+        self.shard_group = shard_group(model)
         self.tx = self._build_tx(preheat_only=(phase == "preheat"))
+        self._wrap(init_sync=True)
         self._best_metric = None
         self._bad_evals = 0
 
@@ -142,8 +192,17 @@ class Trainer:
             self.model, self.cfg.training,
             prefixes_to_preheat=self.cfg.model.prefixes_to_preheat,
             frozen_keywords=self.cfg.model.params_to_keep_frozen_keywords,
-            preheat_only=preheat_only)
+            preheat_only=preheat_only, group=self.shard_group)
         return tx
+
+    def _wrap(self, init_sync: bool) -> None:
+        """(Re)build the wrapper the step calls, over the parameters that
+        need a gradient now."""
+        if self.wrapped is not None:
+            release(self.wrapped)
+        self.wrapped = None
+        self.wrapped = wrap_model(self.model, self.mesh,
+                                  self.cfg.training.shard_params, init_sync)
 
     # -- phases --------------------------------------------------------------
     def _maybe_unfreeze(self) -> None:
@@ -159,6 +218,9 @@ class Trainer:
                         self.state.step)
             self.tx = None  # free the preheat moments before the new ones
             self.tx = self._build_tx(preheat_only=False)
+            # a DDP built in the preheat phase would never all-reduce the
+            # gradients of the parameters unfrozen now
+            self._wrap(init_sync=False)
             self.state.phase = "base"
 
     # -- one micro-batch -----------------------------------------------------
@@ -169,20 +231,23 @@ class Trainer:
         params = self.tx.params
         for p in params:
             p.grad = None
-        total, parts = loss_fn(self.model, self.model_cfg, batch,
-                               self.num_prefix_tokens)
-        total.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
+        total, parts = loss_fn(self.wrapped, self.model_cfg, batch,
+                               self.num_prefix_tokens, self.mesh)
+        # DDP and FSDP2 average the gradients over the ranks: the sum of
+        # the shares' gradients is the global batch's
+        (total if self.mesh is None else total * self.mesh.size()).backward()
+        grads = [local(p.grad) if p.grad is not None
+                 else torch.zeros_like(local(p)) for p in params]
         parts = {k: v.detach() for k, v in parts.items()}
-        parts["grad_norm"] = global_norm(grads)
+        parts["grad_norm"] = global_norm(grads, self.shard_group)
         if self.cfg.training.watch_grads:
             # keyed as the JAX trainer's grad_norm/<encoder|decoder>/<module>
             # and, for the LoRA adapters, grad_norm/lora/decoder
             parts.update(module_grad_norms(
                 ((f"lora.{n.removeprefix('model.')}"
                   if n.endswith(("lora_A", "lora_B")) else n, p)
-                 for n, p in self.model.named_parameters()), sep="/"))
+                 for n, p in self.model.named_parameters()), sep="/",
+                group=self.shard_group))
         self.tx.step(grads)
         for p in params:
             p.grad = None
@@ -204,6 +269,7 @@ class Trainer:
                 self.state.step += 1
 
                 if self.state.step % t.logging_steps == 0:
+                    parts = self._global_parts(parts)
                     parts = {k: float(v) for k, v in parts.items()}
                     dt = time.time() - last_log
                     last_log = time.time()
@@ -243,6 +309,16 @@ class Trainer:
             self.load_best_fn(self.model)
         self.metrics_logger.close()
         return self.state
+
+    def _global_parts(self, parts: Dict[str, Any]) -> Dict[str, Any]:
+        """The global batch's loss and parts from every rank's shares (one
+        all-reduce); the parts as they are in a single-process run."""
+        if self.mesh is None:
+            return parts
+        keys = [k for k in SHARE_KEYS if k in parts]
+        summed = all_reduce_sum(torch.stack([parts[k] for k in keys]),
+                                self.mesh.get_group())
+        return {**parts, **dict(zip(keys, summed))}
 
     def _run_eval(self) -> bool:
         """Returns True if early stopping triggered."""

@@ -107,27 +107,37 @@ def profile_trace(log_dir: Optional[str]):
         yield
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Iterable[torch.Tensor],
+                group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32
-    (optax.global_norm)."""
+    (optax.global_norm). With ``group``, the tensors are this rank's shards
+    of tensors sharded over the group's ranks (FSDP2): the sum of squares
+    is added over the ranks first, in one all-reduce, so every rank gets
+    the norm of the whole tensors."""
     sq = [t.float().square().sum() for t in tensors]
     if not sq:
         return torch.zeros(())
-    return torch.stack(sq).sum().sqrt()
+    total = torch.stack(sq).sum()
+    if group is not None:
+        torch.distributed.all_reduce(total, group=group)
+    return total.sqrt()
 
 
 def module_grad_norms(named: Iterable[Tuple[str, torch.nn.Parameter]],
-                      sep: str = ".") -> Dict[str, torch.Tensor]:
+                      sep: str = ".", group=None) -> Dict[str, torch.Tensor]:
     """Gradient norm per module: the first two parts of the parameter name
     (``model.`` dropped) joined by ``sep``, as ``grad_norm/<top><sep><mod>``.
-    A parameter without a gradient counts as a zero gradient."""
+    A parameter without a gradient counts as a zero gradient. ``group``:
+    the parameters are sharded over its ranks (``global_norm``)."""
+    from ..parallel.mesh import local
+
     groups: Dict[str, list] = {}
     for name, p in named:
         key = sep.join(name.removeprefix("model.").split(".")[:2])
         grads = groups.setdefault(f"grad_norm/{key}", [])
         if p.grad is not None:
-            grads.append(p.grad)
-    return {k: global_norm(v) for k, v in groups.items()}
+            grads.append(local(p.grad))
+    return {k: global_norm(v, group) for k, v in groups.items()}
 
 
 def grad_param_norms(named: Iterable[Tuple[str, torch.nn.Parameter]]
