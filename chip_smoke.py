@@ -139,6 +139,31 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      3, the flash forward runs in both; the hypotheses and metrics equal
      this process's decode at batch 4, and only rank 0 writes the outputs.
      Phases 20-22 read wall time only.
+ 23. (run after phase 21, on its corpus and unwrapped runs) the fine-tune
+     tensor-parallel over a mesh [1, 2] ('data' x 'model') at full turbo
+     width and depth: two ranks share the card over gloo through torchrun
+     and the CLI, each holds 10 of the 20 heads of every attention and
+     half of every MLP, and both read phase 9's micro-batches of 4: both
+     ranks log bit-identical losses and gradient norms, within
+     TP_FORWARD_TOL of the unwrapped run's before the first update and the
+     phase-20 tolerance after it; the replicated trainable tensors end with
+     equal checksums on both ranks; the gathered export loads strictly
+     into a single-process container; the flash forward and backward in
+     every encoder layer and the CTC head of every micro-batch, as
+     unwrapped, and against their plain versions on layer 0's own inputs
+     at (4, 10, 1500, 64); the TP all-reduce bytes per micro-batch, ms per
+     update and peak memory per rank;
+ 24. +train=se_dicow on a mesh [2, 2] (DDP over 'data' x TP over 'model'):
+     four ranks share the card over gloo, at full width and a reduced
+     depth (4 encoder layers, 2 SCBs with their gates opened,
+     self-enrollment), 8 micro-batches of 4 rows (4 preheat, then 4 base,
+     in updates of 2), each split over the two data coordinates: the data
+     coordinates read different rows, the model
+     peers log equal losses, and the global losses lie within
+     TP_FORWARD_TOL of an unwrapped run of the same model before the first
+     update and 10 x the spread of 4 unwrapped runs after it; the SCB cross-
+     attention's flash forward and backward at 10 local heads, against
+     their plain versions on SCB 0's own inputs.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing here imports jax or the JAX package.
 """
@@ -252,7 +277,20 @@ NO_AUG = ("aug.stno_gaussian_noise_prob=0.0",
 # weight gradients in another order), at least DP_LOSS_FLOOR
 DP_FORWARD_TOL = 1e-5
 DP_LOSS_FACTOR, DP_LOSS_FLOOR = 10.0, 1e-6
-# wall-time limit of one torchrun launch of phases 20-22
+# phases 23-24, before the first update: the row-parallel projections add
+# their partial products (formed and all-reduced in fp32) in another order
+# than one GEMM, so a rare bf16 output rounds the other way; after it the
+# phase-20 rule (10 x the unwrapped pair's spread, at least 1e-6). Fixed
+# before the first run on the card (PERF.md §6)
+TP_FORWARD_TOL = 1e-4
+# phase 24's reduced SE-DiCoW: 4 encoder layers, 2 SCBs. Its spread is
+# sampled by 4 unwrapped runs (the largest difference of their 6 pairs):
+# with 4 layers the run-to-run order of dq moves a pair by 8.6e-6 in one
+# call and 1.4e-4 in the next, while the data-parallel split (each data
+# coordinate's weight gradients rounded to bf16 over its 2 rows) moves the
+# losses by up to 5.1e-4 (PERF.md §6)
+TP_SE_LAYERS, TP_SE_SCBS, TP_SE_RUNS = 4, 2, 4
+# wall-time limit of one torchrun launch of phases 20-24
 CHILD_TIMEOUT = 420
 
 
@@ -2305,13 +2343,17 @@ def phase_mel_topk(dev) -> None:
 
 
 def _record_trainer(record: dict):
-    """Patch the Trainer to record what every rank logs, its loop's wall
-    time and peak memory, the bytes of the gradients it all-reduces per
-    micro-batch in each phase and, at the end, a checksum of every
-    trainable parameter (the sum of its fp32 bit patterns and the sum of
-    them weighted by position, this rank's shard under FSDP2); returns
-    the function that restores it."""
+    """Patch the Trainer to record what every rank logs, a digest of each
+    batch's features and STNO masks, its loop's wall time and peak memory,
+    the bytes of the gradients it all-reduces per micro-batch in each phase
+    and, at the end, a checksum of every trainable parameter (the sum of
+    its fp32 bit patterns and the sum of them weighted by position, this
+    rank's shard under FSDP2 or tensor parallelism) and which of them are
+    TP slices; returns the function that restores it."""
+    import hashlib
+
     from ts_asr_whisper_tpu_torch.parallel.mesh import local
+    from ts_asr_whisper_tpu_torch.parallel.tensor import model_group, tp_dim
     from ts_asr_whisper_tpu_torch.training import trainer as trainer_mod
 
     loop = trainer_mod.Trainer.train
@@ -2337,13 +2379,21 @@ def _record_trainer(record: dict):
             def close(self):
                 stream.close()
 
+        def digested(batches):
+            for b in batches:
+                record["batches"].append(hashlib.sha1(
+                    b["input_features"].tobytes()
+                    + b["stno_mask"].tobytes()).hexdigest())
+                yield b
+
         self.metrics_logger = Recorder()
         record["grad_bytes"] = {self.state.phase: grad_bytes(self)}
+        record["batches"] = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         record["loop_start"] = t1
-        out = loop(self, it)
+        out = loop(self, digested(it))
         torch.cuda.synchronize()
         record["loop"] = time.perf_counter() - t1
         record["peak"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2356,6 +2406,10 @@ def _record_trainer(record: dict):
                 pos = torch.arange(1, bits.numel() + 1, device=bits.device)
                 sums += [bits.sum(), (bits * pos).sum()]
             record["checksums"] = torch.stack(sums).tolist()
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        tp = model_group(self.model) is not None
+        record["sliced"] = [tp and tp_dim(names[id(p)]) is not None
+                            for p in self.tx.params]
         return out
 
     trainer_mod.Trainer.train = train
@@ -2368,13 +2422,19 @@ def _record_trainer(record: dict):
 
 
 def child(spec_path: str) -> int:
-    """One rank of phases 20-22, started by torchrun: the CLI's main with
-    the spec's argv, the launch counts set to 0 just before and read just
-    after, the eval batches this rank collates and its encoder calls
-    counted; its record goes to <out>/rank<RANK>.json."""
+    """One rank of phases 20-24, started by torchrun: the CLI's main with
+    the spec's argv, the launch counts and the TP all-reduce bytes set to
+    0 just before and read just after, the eval batches this rank collates
+    and its encoder calls counted; with the spec's ``flash_sites``, the
+    first encoder layer's and the first SCB's own inputs are kept and,
+    after the run, the flash kernels held against their plain versions on
+    them (local heads under tensor parallelism); its record goes to
+    <out>/rank<RANK>.json."""
     from ts_asr_whisper_tpu_torch import __main__ as cli
     from ts_asr_whisper_tpu_torch import decode, kernels
-    from ts_asr_whisper_tpu_torch.models.dicow import DiCoWEncoder
+    from ts_asr_whisper_tpu_torch.models.dicow import SCB, DiCoWEncoder
+    from ts_asr_whisper_tpu_torch.models.whisper import EncoderLayer
+    from ts_asr_whisper_tpu_torch.parallel import tensor as tp_mod
 
     spec = json.loads(Path(spec_path).read_text())
     rank = int(os.environ.get("RANK", "0"))
@@ -2388,9 +2448,15 @@ def child(spec_path: str) -> int:
             record["decoded"].append(bi)
             yield bi, batch
 
+    sites = {}
+
     def count_encoder(module, args, output):
         if isinstance(module, DiCoWEncoder):
             record["encoder_calls"] += 1
+        for kind, cls in (("layer0", EncoderLayer), ("scb0", SCB)):
+            if (spec.get("flash_sites") and kind not in sites
+                    and type(module) is cls and torch.is_grad_enabled()):
+                sites[kind] = (module, args[0].detach())
 
     do_eval = decode.DecodeRunner.do_eval
 
@@ -2407,25 +2473,43 @@ def child(spec_path: str) -> int:
     hook = torch.nn.modules.module.register_module_forward_hook(count_encoder)
     for name in kernels.launch_counts:
         kernels.launch_counts[name] = 0
+    for kind in tp_mod.reduced_bytes:
+        tp_mod.reduced_bytes[kind] = 0
     t0 = time.perf_counter()
     try:
         metrics = cli.main(spec["argv"])
     finally:
         hook.remove()
+    wall = time.perf_counter() - t0
+    record.update(launches=dict(kernels.launch_counts),
+                  tp_bytes=dict(tp_mod.reduced_bytes), wall=wall,
+                  returned=time.time(), flash_sites={},
+                  metrics={k: float(v) for k, v in (metrics or {}).items()})
     if "loop_start" in record:
         # the CLI's set-up before the training loop, and what follows it
         # (the HF export)
         record["setup"] = record.pop("loop_start") - t0
-        record["after"] = time.perf_counter() - t0 - record["setup"] \
-            - record["loop"]
-    record.update(wall=time.perf_counter() - t0, returned=time.time(),
-                  launches=dict(kernels.launch_counts),
-                  metrics={k: float(v) for k, v in (metrics or {}).items()})
+        record["after"] = wall - record["setup"] - record["loop"]
+    for kind, (module, x) in sorted(sites.items()):
+        if kind == "layer0":
+            attn = module.self_attn
+            with torch.no_grad():
+                q, k, v = module.attn_in(x, x.dtype)
+        else:  # the sample stream's queries on the enrollment's keys
+            attn = module.cae.cross_attn
+            with torch.no_grad():
+                q = attn.query(x[:, 0], x.dtype)
+                k, v = attn.keys_values(x[:, 1], x.dtype)
+        record["flash_sites"][kind] = {
+            "heads": attn.num_heads, "shape": list(q.shape),
+            **check_flash_site(f"[rank {rank}] {kind} at {attn.num_heads} "
+                               "local heads", q, k, v, seed=7)}
     (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(record))
     return 0
 
 
-def run_ranks(tag: str, argv: list, nproc: int) -> list:
+def run_ranks(tag: str, argv: list, nproc: int,
+              flash_sites: bool = False) -> list:
     """``python -m torch.distributed.run --standalone --nproc-per-node
     nproc chip_smoke.py --child <spec>``: the CLI on ``nproc`` ranks; the
     launcher and its ranks are killed at CHILD_TIMEOUT. Returns the
@@ -2434,7 +2518,8 @@ def run_ranks(tag: str, argv: list, nproc: int) -> list:
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     spec = out / "spec.json"
-    spec.write_text(json.dumps({"argv": argv, "out": str(out)}))
+    spec.write_text(json.dumps({"argv": argv, "out": str(out),
+                                "flash_sites": flash_sites}))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
            "--child", str(spec)]
@@ -2499,6 +2584,12 @@ def _unwrapped_runs(dev, overrides: list, n: int = 2) -> list:
     return records
 
 
+def _spread(recs: list) -> float:
+    """The largest relative loss difference of any two of ``recs``."""
+    return max(_max_rel(a["logged"], b["logged"])
+               for i, a in enumerate(recs) for b in recs[i + 1:])
+
+
 def _max_rel(a: list, b: list, key: str = "loss") -> float:
     if [r["step"] for r in a] != [r["step"] for r in b]:
         raise AssertionError(f"logged steps differ: {[r['step'] for r in a]}"
@@ -2507,7 +2598,8 @@ def _max_rel(a: list, b: list, key: str = "loss") -> float:
 
 
 def _check_train_rank(tag: str, rec: dict, ref: dict, tol: float,
-                      per_batch: int, steps: int) -> None:
+                      per_batch: int, steps: int,
+                      fwd_tol: float = DP_FORWARD_TOL) -> None:
     diff = _max_rel(rec["logged"], ref["logged"])
     # accumulation 2: the first update follows micro-batch 2
     fwd = _max_rel(rec["logged"][:2], ref["logged"][:2])
@@ -2519,14 +2611,13 @@ def _check_train_rank(tag: str, rec: dict, ref: dict, tol: float,
     if len(rec["logged"]) != steps or rec["base_updates"] != 2:
         raise AssertionError(f"[{tag}] {len(rec['logged'])} logged steps, "
                              f"{rec['base_updates']} base updates")
-    if diff > tol or fwd > DP_FORWARD_TOL or not all(
+    if diff > tol or fwd > fwd_tol or not all(
             math.isfinite(r["loss"]) for r in rec["logged"]):
         raise AssertionError(
             f"[{tag}] losses {[r['loss'] for r in rec['logged']]} vs "
             f"unwrapped {[r['loss'] for r in ref['logged']]}: relative "
             f"difference {fwd:.3g} before the first update (tolerance "
-            f"{DP_FORWARD_TOL:.3g}), {diff:.3g} in all (tolerance "
-            f"{tol:.3g})")
+            f"{fwd_tol:.3g}), {diff:.3g} in all (tolerance {tol:.3g})")
     if got != (want, want):
         raise AssertionError(f"[{tag}] flash launches fwd/bwd {got}, want "
                              f"{want} ({per_batch} x {steps} micro-batches)")
@@ -2540,39 +2631,49 @@ def _check_train_rank(tag: str, rec: dict, ref: dict, tol: float,
         f"{rec['peak']:.1f} GiB{parts}")
 
 
-def phase_dp_train(dev, p9: dict) -> dict:
-    """Phases 20 and 21 (see the module docstring)."""
+def dp_setup(dev, p9: dict = None) -> dict:
+    """Phase 20's corpus (phase 9's), model dir and two unwrapped runs of
+    the fine-tune in this process: the reference and the loss tolerance of
+    phases 20, 21 and 23."""
     from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
 
     work = WORK / "dp_train"
     shutil.rmtree(work, ignore_errors=True)
     manifest = write_corpus(work / "corpus", [30.0] * 8, seed=1)  # phase 9's
     model_dir = _turbo_dir(work)
-    mc = TURBO["encoder_layers"] + 1  # + the CTC head's self-attention
-    steps = 8
-
-    def overrides(name):
-        return [*train_overrides(manifest, model_dir, work / name), *NO_AUG]
-
-    ref = _unwrapped_runs(dev, overrides("unwrapped"))
+    ctx = {"dev": dev, "work": work, "steps": 8,
+           # + the CTC head's self-attention
+           "per_batch": TURBO["encoder_layers"] + 1,
+           "overrides": lambda name: [
+               *train_overrides(manifest, model_dir, work / name), *NO_AUG]}
+    ref = _unwrapped_runs(dev, ctx["overrides"]("unwrapped"))
     spread = _max_rel(ref[1]["logged"], ref[0]["logged"])
-    tol = max(DP_LOSS_FACTOR * spread, DP_LOSS_FLOOR)
+    ctx.update(ref=ref[0], tol=max(DP_LOSS_FACTOR * spread, DP_LOSS_FLOOR))
+    steps = ctx["steps"]
+    p9_line = (f"; phase 9 (with augmentations) {p9['ms_per_update']:.0f} ms "
+               f"per update, peak {p9['peak_gib']:.1f} GiB" if p9 else "")
     log(f"[dp] two unwrapped runs: largest relative loss difference "
-        f"{spread:.3g} -> tolerance {tol:.3g}; ms per update "
+        f"{spread:.3g} -> tolerance {ctx['tol']:.3g}; ms per update "
         f"{ref[0]['loop'] * 1e3 / (steps // 2):.0f} / "
         f"{ref[1]['loop'] * 1e3 / (steps // 2):.0f}, peak "
-        f"{ref[0]['peak']:.1f} / {ref[1]['peak']:.1f} GiB; phase 9 (with "
-        f"augmentations) {p9['ms_per_update']:.0f} ms per update, peak "
-        f"{p9['peak_gib']:.1f} GiB")
+        f"{ref[0]['peak']:.1f} / {ref[1]['peak']:.1f} GiB{p9_line}")
     for r in ref:
-        _check_train_rank("unwrapped", r, ref[0], tol, mc, steps)
+        _check_train_rank("unwrapped", r, ref[0], ctx["tol"],
+                          ctx["per_batch"], steps)
+    return ctx
 
+
+def phase_dp_train(ctx: dict) -> dict:
+    """Phases 20 and 21 (see the module docstring)."""
+    ref, tol, mc, steps = (ctx[k] for k in ("ref", "tol", "per_batch",
+                                             "steps"))
+    overrides = ctx["overrides"]
     paths = {}
     for shard, tag in ((False, "ddp_nccl"), (True, "fsdp_nccl")):
         rec, = run_ranks(tag, ["--device", "cuda", *overrides(tag),
                                f"training.shard_params={str(shard).lower()}"],
                          nproc=1)
-        _check_train_rank(tag, rec, ref[0], tol, mc, steps)
+        _check_train_rank(tag, rec, ref, tol, mc, steps)
         paths[f"dicow_v3_train_{tag}"] = rec["launches"]
 
     # phase 21: two ranks on one card over gloo, micro-batches of 2
@@ -2582,8 +2683,7 @@ def phase_dp_train(dev, p9: dict) -> dict:
         raise AssertionError(f"[ddp_gloo_2ranks] the ranks logged "
                              f"{recs[0]['logged']} and {recs[1]['logged']}")
     for rank, rec in enumerate(recs):
-        _check_train_rank(f"ddp_gloo rank {rank}", rec, ref[0], tol, mc,
-                          steps)
+        _check_train_rank(f"ddp_gloo rank {rank}", rec, ref, tol, mc, steps)
     if recs[0]["checksums"] != recs[1]["checksums"]:
         bad = sum(a != b for a, b in zip(recs[0]["checksums"],
                                          recs[1]["checksums"]))
@@ -2594,11 +2694,174 @@ def phase_dp_train(dev, p9: dict) -> dict:
         f"tensors with equal checksums on both ranks; all-reduce per "
         f"micro-batch: preheat {gb['preheat'] / 1e6:.1f} MB, base "
         f"{gb['base'] / 1e9:.3f} GB of fp32 gradients (+ 4 B token count)")
-    paths["dicow_v3_train_ddp_gloo_2ranks"] = {
-        k: recs[0]["launches"][k] + recs[1]["launches"][k]
-        for k in recs[0]["launches"]}
-    shutil.rmtree(work, ignore_errors=True)
+    paths["dicow_v3_train_ddp_gloo_2ranks"] = _summed(recs)
     return paths
+
+
+def _summed(recs: list) -> dict:
+    """The ranks' launch counts, summed per kernel."""
+    return {k: sum(r["launches"][k] for r in recs)
+            for k in recs[0]["launches"]}
+
+
+def _equal_replicated(tag: str, recs: list) -> int:
+    """The checksums of every trainable tensor that is whole on each rank
+    (not a TP slice) are equal on all ranks; returns their count."""
+    flags = recs[0]["sliced"]
+    whole = [t for t, sliced in enumerate(flags) if not sliced]
+    # two checksums a tensor
+    bad = [t for t in whole
+           if len({tuple(r["checksums"][2 * t:2 * t + 2]) for r in recs}) > 1]
+    if bad or any(r["sliced"] != flags for r in recs):
+        raise AssertionError(f"[{tag}] {len(bad)} replicated tensors differ "
+                             "between the ranks")
+    return len(whole)
+
+
+def _tp_rank_line(tag: str, recs: list, steps: int) -> str:
+    tb = recs[0]["tp_bytes"]
+    ms = " / ".join(f"{r['loop'] * 1e3 / (steps // 2):.0f}" for r in recs)
+    peak = " / ".join(f"{r['peak']:.1f}" for r in recs)
+    return (f"[{tag}] TP all-reduce per micro-batch and rank: forward "
+            f"{tb['forward'] / steps / 1e9:.3f} GB (fp32 row-parallel "
+            f"sums), backward {tb['backward'] / steps / 1e9:.3f} GB (bf16 "
+            f"input gradients), {tb['whole_grads'] / steps / 1e9:.3f} GB "
+            f"(fp32 gradients of the whole tensors); ms per update {ms}, "
+            f"peak {peak} GiB")
+
+
+def phase_tp_train(ctx: dict) -> dict:
+    """Phase 23 (see the module docstring)."""
+    from safetensors.torch import load_file
+
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.models.containers import WhisperContainer
+
+    ref, tol, mc, steps = (ctx[k] for k in ("ref", "tol", "per_batch",
+                                             "steps"))
+    tag = "tp_1x2"
+    recs = run_ranks(tag, [
+        "--device", "cuda:0", "--backend", "gloo", *ctx["overrides"]("tp"),
+        "training.mesh_shape=[1,2]", "training.mesh_axis_names=[data,model]"],
+        nproc=2, flash_sites=True)
+    if recs[0]["logged"] != recs[1]["logged"]:
+        raise AssertionError(f"[{tag}] the ranks logged {recs[0]['logged']} "
+                             f"and {recs[1]['logged']}")
+    if recs[0]["batches"] != recs[1]["batches"]:
+        raise AssertionError(f"[{tag}] the model peers read other batches")
+    for rank, rec in enumerate(recs):
+        _check_train_rank(f"{tag} rank {rank}", rec, ref, tol, mc, steps,
+                          fwd_tol=TP_FORWARD_TOL)
+        site = rec["flash_sites"]["layer0"]
+        heads = TURBO["encoder_attention_heads"] // 2
+        if site["heads"] != heads or site["shape"] != [
+                4, heads, 1500, TURBO["d_model"] // (2 * heads)]:
+            raise AssertionError(f"[{tag}] rank {rank} layer 0 at "
+                                 f"{site['heads']} heads, q {site['shape']}")
+    n_whole = _equal_replicated(tag, recs)
+    # the gathered export loads strictly into one process's container
+    export = ctx["work"] / "tp" / "hf_export"
+    cfg = load_config(["+train=dicow_v3", f"model.whisper_model={export}",
+                       "model.reinit_encoder_from=null",
+                       "data.train_cutsets=[]", "data.dev_cutsets=[]",
+                       "data.eval_cutsets=[]"])
+    container = WhisperContainer(cfg, ctx["dev"])
+    sd = load_file(str(export / "model.safetensors"))
+    q = "model.encoder.layers.0.self_attn.q_proj.weight"
+    if tuple(sd[q].shape) != (TURBO["d_model"],) * 2:
+        raise AssertionError(f"[{tag}] export {q} {tuple(sd[q].shape)}")
+    del container, sd
+    log(f"[{tag}] both ranks logged bit-identical losses and gradient "
+        f"norms {[round(r['loss'], 6) for r in recs[0]['logged']]}; "
+        f"{n_whole} replicated trainable tensors with equal checksums; the "
+        f"gathered export loads strictly into one process's container")
+    log(_tp_rank_line(tag, recs, steps))
+    return {"dicow_v3_train_tp_1x2": _summed(recs)}
+
+
+def phase_tp_se_dicow(dev) -> dict:
+    """Phase 24 (see the module docstring)."""
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
+    from ts_asr_whisper_tpu_torch.models.containers import WhisperContainer
+    from ts_asr_whisper_tpu_torch.training.checkpoints import \
+        export_hf_checkpoint
+
+    work = WORK / "tp_se_dicow"
+    shutil.rmtree(work, ignore_errors=True)
+    manifest = write_corpus(work / "corpus", [30.0] * 4, seed=2)
+    model_dir = work / "model"
+    model_dir.mkdir(parents=True)
+    (model_dir / "config.json").write_text(json.dumps(
+        {**TURBO, "encoder_layers": TP_SE_LAYERS}))
+    steps = 8  # 4 preheat micro-batches, then 4 base ones, in updates of 2
+
+    def overrides(name):
+        return ["+train=se_dicow", f"model.whisper_model={model_dir}",
+                f"model.scb_layers={TP_SE_SCBS}",
+                "model.reinit_encoder_from=null",
+                f"data.train_cutsets=[{manifest}]", "data.dev_cutsets=[]",
+                "data.eval_cutsets=[]", "data.enrollment_cutsets=[]",
+                "data.dataset_weights=null", "aug.musan_root=null",
+                "training.overall_batch_size=8",
+                "training.gradient_accumulation_steps=2",
+                f"training.max_steps={steps}",
+                "training.use_fddt_only_n_steps=4", "training.warmup_steps=0",
+                "training.eval_strategy=no", "training.save_strategy=no",
+                "training.logging_steps=1",
+                f"training.output_dir={work / name}", *NO_AUG]
+
+    # the model's weights from the seed with every SCB gate opened (a fresh
+    # gate is 0 and stops every SCB gradient), saved for all the runs
+    container = WhisperContainer(load_config(overrides("init")), dev)
+    with torch.no_grad():
+        for i, scb in enumerate(container.model.encoder.ca_enrolls):
+            scb.cae.cross_gate.gate.fill_(0.3 + 0.05 * i)
+    export_hf_checkpoint(container.model.state_dict(),
+                         container.model_config, str(model_dir))
+    del container
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = _unwrapped_runs(dev, overrides("unwrapped"), n=TP_SE_RUNS)
+    spread = _spread(ref)
+    tol = max(DP_LOSS_FACTOR * spread, DP_LOSS_FLOOR)
+    per_batch = TP_SE_LAYERS + TP_SE_SCBS + 1  # + the CTC head
+    log(f"[tp se_dicow] {TP_SE_RUNS} unwrapped runs: largest relative loss "
+        f"difference of a pair {spread:.3g} -> tolerance {tol:.3g}")
+    for r in ref:
+        _check_train_rank("tp se_dicow unwrapped", r, ref[0], tol, per_batch,
+                          steps)
+    tag = "tp_2x2"
+    recs = run_ranks(tag, [
+        "--device", "cuda:0", "--backend", "gloo", *overrides("tp"),
+        "training.mesh_shape=[2,2]", "training.mesh_axis_names=[data,model]"],
+        nproc=4, flash_sites=True)
+    # rank = d * tp + m: ranks 0, 1 hold data coordinate 0, ranks 2, 3 hold 1
+    if not (recs[0]["batches"] == recs[1]["batches"]
+            and recs[2]["batches"] == recs[3]["batches"]) or any(
+                a == b for a, b in zip(recs[0]["batches"],
+                                       recs[2]["batches"])):
+        raise AssertionError(f"[{tag}] batches {[r['batches'] for r in recs]}")
+    for rank, rec in enumerate(recs):
+        if rec["logged"] != recs[0]["logged"]:
+            raise AssertionError(f"[{tag}] rank {rank} logged "
+                                 f"{rec['logged']}, rank 0 "
+                                 f"{recs[0]['logged']}")
+        _check_train_rank(f"{tag} rank {rank}", rec, ref[0], tol, per_batch,
+                          steps, fwd_tol=TP_FORWARD_TOL)
+        site = rec["flash_sites"]["scb0"]
+        if site["heads"] != TURBO["encoder_attention_heads"] // 2:
+            raise AssertionError(f"[{tag}] rank {rank}: SCB 0 at "
+                                 f"{site['heads']} heads")
+    n_whole = _equal_replicated(tag, recs)
+    log(f"[{tag}] data coordinates read different rows, the model peers "
+        f"the same; every rank logged the global losses "
+        f"{[round(r['loss'], 6) for r in recs[0]['logged']]}; {n_whole} "
+        f"replicated trainable tensors with equal checksums; SCB 0 at "
+        f"{recs[0]['flash_sites']['scb0']['shape']}")
+    log(_tp_rank_line(tag, recs, steps))
+    shutil.rmtree(work, ignore_errors=True)
+    return {"se_dicow_train_tp_2x2": _summed(recs)}
 
 
 def phase_sharded_eval(dev) -> dict:
@@ -2657,9 +2920,7 @@ def phase_sharded_eval(dev) -> dict:
         f"{recs[0]['wall']:.1f} / {recs[1]['wall']:.1f} s a rank")
     shutil.rmtree(work, ignore_errors=True)
     return {"dicow_v3_greedy_b4": single["launches"],
-            "dicow_v3_greedy_sharded_2ranks": {
-                k: recs[0]["launches"][k] + recs[1]["launches"][k]
-                for k in recs[0]["launches"]}}
+            "dicow_v3_greedy_sharded_2ranks": _summed(recs)}
 
 
 def main() -> int:
@@ -2689,8 +2950,12 @@ def main() -> int:
     paths["dicow_v3_beam_joint_fallback_int8"] = phase_fallback_int8(
         dev)["launches"]
     paths["dicow_v3_greedy_token_ts"] = phase_token_ts(dev)["launches"]
-    paths.update(phase_dp_train(dev, p9))
+    ctx = dp_setup(dev, p9)
+    paths.update(phase_dp_train(ctx))
+    paths.update(phase_tp_train(ctx))
+    shutil.rmtree(ctx.pop("work"), ignore_errors=True)
     paths.update(phase_sharded_eval(dev))
+    paths.update(phase_tp_se_dicow(dev))
     from ts_asr_whisper_tpu_torch.kernels import KERNEL_SOURCES
 
     csrc = "ts_asr_whisper_tpu_torch/kernels/csrc"

@@ -96,7 +96,8 @@ def test_port_imports_with_jax_blocked():
             "ts_asr_whisper_tpu_torch.pretrain_encoder",
             "ts_asr_whisper_tpu_torch.training.lora",
             "ts_asr_whisper_tpu_torch.parallel.dist",
-            "ts_asr_whisper_tpu_torch.parallel.mesh"} <= loaded
+            "ts_asr_whisper_tpu_torch.parallel.mesh",
+            "ts_asr_whisper_tpu_torch.parallel.tensor"} <= loaded
     jax_pkg = {m for m in loaded if m == "ts_asr_whisper_tpu"
                or m.startswith("ts_asr_whisper_tpu.")}
     assert not jax_pkg

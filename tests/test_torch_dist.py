@@ -2,12 +2,13 @@
 CPU (gloo), after tests/test_multiprocess.py:
 
 - parallel/dist.py's primitives across 2 live processes;
-- the scope: a ``model`` mesh axis (tensor parallelism), a mesh larger or
-  smaller than the world, pre-training, ``auto_find_batch_size`` and LoRA
-  under ``shard_params`` at a world above 1 are refused, each with its
-  reason; a ``data`` mesh over the world is not; the default backend takes
-  NCCL for CUDA tensors and fails where there is none, it never falls back
-  to gloo;
+- the scope: a ``model`` mesh axis (tensor parallelism) that does not
+  divide the heads, a mesh larger or smaller than the world, pre-training,
+  ``auto_find_batch_size`` and LoRA under ``shard_params`` at a world above
+  1 are refused, each with its reason; a ``data`` mesh, or ``data`` x
+  ``model``, over the world is not; the default backend takes NCCL for
+  CUDA tensors and fails where there is none, it never falls back to
+  gloo;
 - rank-sharded long-form eval through the CLI (``decode_only``): rank 0
   decodes batches 0, 2, 4 and rank 1 batches 1, 3, 5; the metrics are
   every rank's alike and equal the single-process run's and the JAX CLI's;
@@ -74,8 +75,9 @@ def _cfg(*overrides):
 
 
 @pytest.mark.parametrize("overrides, error, match", [
-    (("training.mesh_shape=[1,2]", "training.mesh_axis_names=[data,model]"),
-     NotImplementedError, "tensor parallelism"),
+    (("training.mesh_shape=[1,2]", "training.mesh_axis_names=[data,model]",
+      "model.whisper_model={odd_heads}"),
+     NotImplementedError, "does not divide encoder_attention_heads=3"),
     (("training.mesh_shape=[4]",), ValueError, "needs 4 devices, have 2"),
     (("training.mesh_shape=[1]",), ValueError, "covers 1 of the 2 ranks"),
     (("+pretrain=turbo",), NotImplementedError, "pre-training runs on one"),
@@ -84,19 +86,28 @@ def _cfg(*overrides):
     (("training.use_lora=true", "training.shard_params=true"),
      NotImplementedError, "FSDP2 shards"),
 ])
-def test_scope_refuses_at_world_two(overrides, error, match):
+def test_scope_refuses_at_world_two(overrides, error, match, tmp_path):
+    # a model of 3 heads: a model axis of 2 would split one
+    (tmp_path / "config.json").write_text(json.dumps({
+        "d_model": 192, "encoder_attention_heads": 3,
+        "decoder_attention_heads": 3, "encoder_ffn_dim": 768,
+        "decoder_ffn_dim": 768}))
     with pytest.raises(error, match=match):
-        check_scope(_cfg(*overrides), world=2)
+        check_scope(_cfg(*(o.format(odd_heads=tmp_path) for o in overrides)),
+                    world=2)
 
 
 @pytest.mark.parametrize("overrides", [
     (), ("training.mesh_shape=[2]",), ("training.shard_params=true",),
     ("training.use_lora=true",),
-    ("training.auto_find_batch_size=true", "training.decode_only=true")])
+    ("training.auto_find_batch_size=true", "training.decode_only=true"),
+    ("training.mesh_shape=[1,2]", "training.mesh_axis_names=[data,model]"),
+    ("training.mesh_shape=[2,1]", "training.mesh_axis_names=[data,model]")])
 def test_scope_accepts_a_data_mesh_over_the_world(overrides):
     check_scope(_cfg(*overrides), world=2)
-    check_scope(_cfg(*overrides[:1] if overrides[:1] != (
-        "training.mesh_shape=[2]",) else ()), world=1)
+    # the same options on one rank, without the mesh
+    check_scope(_cfg(*(o for o in overrides[:1]
+                       if not o.startswith("training.mesh"))), world=1)
 
 
 def test_default_backend_never_falls_back_to_gloo(tmp_path):

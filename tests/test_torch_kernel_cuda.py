@@ -1,7 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch versions, on the
-card: encoder flash attention forward and backward (also on SE-DiCoW's SCB
-cross-attention over stream slices, and in an encoder under the 'attn'
-remat policy),
+card: encoder flash attention forward and backward (also at the local head
+counts of tensor parallelism, on SE-DiCoW's SCB cross-attention over stream
+slices, and in an encoder under the 'attn' remat policy),
 beam ancestry attention
 (on a beam search's own ancestry map, at every class of pos, around the
 cluster size, at the longest cache it takes, and one launch captured in a
@@ -125,6 +125,30 @@ def test_backward_kernel_matches_plain(cuda, dtype, t):
     torch.cuda.synchronize()
     assert launch_counts["flash_attn_bwd"] == before + 1
     _assert_bwd_close(out, A.flash_mha_bwd_reference(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [10, 5])
+def test_kernels_at_tensor_parallel_local_heads(cuda, dtype, heads):
+    """The forward (out, lse) and the backward at the turbo fine-tune's
+    micro-batch of 4 with the 20 heads split over a model axis of 2 or 4
+    (parallel/tensor.py): B·H of 40 and 20 rows of blocks."""
+    shape = (4, heads, 1500, 64)
+    q, k, v = _qkv(shape, dtype, cuda, seed=heads)
+    g = _qkv(shape, dtype, cuda, seed=heads + 1)[1]
+    before = (launch_counts["flash_attn_fwd"], launch_counts["flash_attn_bwd"])
+    out, lse = A.flash_mha_fwd(q, k, v, with_lse=True)
+    grads = A.flash_mha_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert (launch_counts["flash_attn_fwd"], launch_counts["flash_attn_bwd"]) \
+        == (before[0] + 1, before[1] + 1)
+    ref_out, ref_lse = A.flash_mha_reference(q, k, v, with_lse=True)
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-5)
+    _assert_bwd_close(grads, A.flash_mha_bwd_reference(q, k, v, out, lse, g),
+                      dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,6 +1,7 @@
-"""Multi-process worker of the port's data-parallel tests
-(tests/test_torch_dist.py, test_torch_ddp.py, test_torch_fsdp.py), after
-tests/mp_worker.py. Not collected by pytest; run as
+"""Multi-process worker of the port's data- and tensor-parallel tests
+(tests/test_torch_dist.py, test_torch_ddp.py, test_torch_fsdp.py,
+test_torch_tp.py), after tests/mp_worker.py. Not collected by pytest; run
+as
 
     python tests/torch_mp_worker.py MODE OUTDIR INIT_FILE RANK WORLD ARGS_JSON
 
@@ -13,10 +14,23 @@ and writes ``rank<RANK>.json`` into OUTDIR. Modes:
   gather_from_processes (small and uneven ~100k / 200k character
   payloads), shard_indices_by_process;
 - ``train``: the port's Trainer on the tiny DiCoW of ARGS_JSON's weights
-  over this rank's rows of each global batch (DDP, or FSDP2 under
-  ``training.shard_params``); the logged metrics and the final whole state
-  dict (``state<RANK>.pt``); optionally a checkpoint saved and restored
-  into a fresh sharded model (``restored<RANK>.pt``);
+  over its data coordinate's rows of each global batch (DDP, or FSDP2
+  under ``training.shard_params``; a ``model`` mesh axis slices the model,
+  and model coordinate 0 hands each batch to its peers); the logged
+  metrics and the final whole state dict (``state<RANK>.pt``); optionally
+  a checkpoint saved and restored into a fresh sliced and wrapped model
+  (``restored<RANK>.pt``);
+- ``resume``: a fresh model loads a checkpoint's parameters and the
+  Trainer slices and wraps it on this run's mesh; its whole state dict
+  (``resumed<RANK>.pt``);
+- ``tp_modules``: an ``Attention``, an ``EncoderLayer``, a decoder layer
+  and an SCB sliced over the world as one ``model`` group against the
+  whole module on the same inputs (outputs, input and parameter
+  gradients), fp32 and bf16; and ``shard_state_dict`` then
+  ``gather_state_dict`` of a tiny DiCoW;
+- ``batches``: the fine-tune's loading path (``ModelTrainer._fit``) with the
+  Trainer's loop replaced by a recorder of each batch this rank receives,
+  beside the batches its own loader would have built;
 - ``cli``: the port's CLI (``__main__.main``) with ARGS_JSON's argv, the
   eval batches each rank collates and the scoring calls counted.
 """
@@ -69,8 +83,8 @@ def run_primitives(outdir, rank, args):
 
 
 def load_batches(path, rank, world):
-    """This rank's rows of every global batch saved by the parent
-    (``<step>/<key>`` arrays of an npz)."""
+    """Data coordinate ``rank``'s rows (of ``world``) of every global batch
+    saved by the parent (``<step>/<key>`` arrays of an npz)."""
     import numpy as np
 
     data = np.load(path)
@@ -82,6 +96,21 @@ def load_batches(path, rank, world):
         out.append({k.split("/", 1)[1]: data[k][rank * rows:(rank + 1) * rows]
                     for k in keys})
     return out
+
+
+def mesh_batches(path, mesh):
+    """The batches of this rank's data coordinate, loaded by its model
+    coordinate 0 and handed to the model peers (train.py's way)."""
+    from ts_asr_whisper_tpu_torch.parallel.mesh import (DATA_AXIS,
+                                                        MODEL_AXIS,
+                                                        axis_group,
+                                                        axis_rank, axis_size)
+    from ts_asr_whisper_tpu_torch.parallel.tensor import model_peer_batches
+
+    build = axis_rank(mesh, MODEL_AXIS) == 0
+    own = load_batches(path, axis_rank(mesh, DATA_AXIS),
+                       axis_size(mesh, DATA_AXIS)) if build else ()
+    return model_peer_batches(own, axis_group(mesh, MODEL_AXIS), build)
 
 
 def build_model(args):
@@ -107,6 +136,7 @@ def run_train(outdir, rank, args):
     from ts_asr_whisper_tpu_torch.parallel import dist
     from ts_asr_whisper_tpu_torch.parallel.mesh import (full_state_dict,
                                                         wrap_model)
+    from ts_asr_whisper_tpu_torch.parallel.tensor import shard_model_
     from ts_asr_whisper_tpu_torch.training.checkpoints import (
         restore_checkpoint, save_model_checkpoint)
     from ts_asr_whisper_tpu_torch.training.trainer import Trainer
@@ -128,7 +158,7 @@ def run_train(outdir, rank, args):
             stream.close()
 
     trainer.metrics_logger = Recorder()
-    state = trainer.train(iter(load_batches(args["batches"], rank, world)))
+    state = trainer.train(mesh_batches(args["batches"], trainer.mesh))
     torch.save(full_state_dict(trainer.model, to_cpu=False),
                os.path.join(outdir, f"state{rank}.pt"))
     out = {"logged": logged, "phase": state.phase, "step": state.step,
@@ -138,11 +168,182 @@ def run_train(outdir, rank, args):
         restored, step = restore_checkpoint(args["ckpt"])
         fresh = build_model(args)
         fresh.load_state_dict(restored["params"])  # before the wrapper
+        shard_model_(fresh, trainer.tp_group)
         fresh = wrap_model(fresh, trainer.mesh, cfg.training.shard_params)
         torch.save(full_state_dict(fresh, to_cpu=False),
                    os.path.join(outdir, f"restored{rank}.pt"))
         out["ckpt_step"] = step
     return out
+
+
+def run_resume(outdir, rank, args):
+    """A fresh model resumes ARGS_JSON's checkpoint on this run's mesh, as
+    train.py does: the whole parameters loaded before the Trainer slices
+    and wraps the model."""
+    import torch
+
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.parallel import dist
+    from ts_asr_whisper_tpu_torch.parallel.mesh import full_state_dict
+    from ts_asr_whisper_tpu_torch.training.checkpoints import \
+        restore_checkpoint
+    from ts_asr_whisper_tpu_torch.training.trainer import Trainer
+
+    cfg = load_config(list(args["overrides"]), n_devices=dist.world_size())
+    restored, step = restore_checkpoint(args["ckpt"])
+    model = build_model(args)
+    model.load_state_dict(restored["params"])
+    trainer = Trainer(cfg, model, num_prefix_tokens=2, start_step=step)
+    torch.save(full_state_dict(trainer.model, to_cpu=False),
+               os.path.join(outdir, f"resumed{rank}.pt"))
+    heads = trainer.model.encoder.layers[0].self_attn.num_heads
+    return {"step": trainer.state.step, "phase": trainer.state.phase,
+            "local_heads": heads}
+
+
+def run_tp_modules(outdir, rank, args):
+    """Each module sliced over the world (one ``model`` group) against the
+    whole module on the same inputs and upstream gradient: the largest
+    relative differences of the output, the input gradients and each
+    parameter's gradient (the whole one's slice of this rank)."""
+    import torch
+
+    from ts_asr_whisper_tpu_torch.models.config import DiCoWConfig
+    from ts_asr_whisper_tpu_torch.models.dicow import SCB, DiCoW, init_dicow_
+    from ts_asr_whisper_tpu_torch.models.whisper import (Attention,
+                                                         DecoderLayer,
+                                                         EncoderLayer)
+    from ts_asr_whisper_tpu_torch.parallel import dist
+    from ts_asr_whisper_tpu_torch.parallel.tensor import (gather_state_dict,
+                                                          shard_model_,
+                                                          shard_state_dict,
+                                                          tp_dim)
+
+    group = torch.distributed.group.WORLD
+    world = dist.world_size()
+    d, heads, ffn, t = args["d"], args["heads"], args["ffn"], args["t"]
+
+    def rel(a, b):
+        # the smallest rtol at which |a - b| <= rtol (max|b| + |b|): an
+        # allclose whose atol is rtol times the tensor's largest magnitude
+        scale = b.abs().max().clamp_min(1e-30) + b.abs()
+        return float(((a - b).abs() / scale).max())
+
+    def build(kind):
+        gen = torch.Generator().manual_seed(1)
+        mod = {"attention": lambda: Attention(d, heads),
+               "encoder_layer": lambda: EncoderLayer(d, heads, ffn),
+               "decoder_layer": lambda: DecoderLayer(d, heads, ffn),
+               "scb": lambda: SCB(d, heads, ffn)}[kind]()
+        with torch.no_grad():
+            for p in mod.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+        return mod
+
+    def inputs(kind):
+        gen = torch.Generator().manual_seed(2)
+        shape = (2, 2, t, d) if kind == "scb" else (2, t, d)
+        xs = [torch.randn(shape, generator=gen)]
+        if kind in ("attention", "decoder_layer"):
+            xs.append(torch.randn(2, t + 3, d, generator=gen))
+        return xs
+
+    def call(kind, mod, xs, dtype):
+        if kind == "attention":
+            return mod(xs[0], xs[1], dtype)
+        if kind == "encoder_layer":
+            return mod(xs[0], dtype)
+        if kind == "decoder_layer":
+            mask = torch.ones(t, t, dtype=torch.bool).tril()
+            return mod(xs[0], xs[1], dtype, mask)
+        return mod(xs[0], dtype)
+
+    out = {}
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        for kind in ("attention", "encoder_layer", "decoder_layer", "scb"):
+            runs = []
+            for sliced in (False, True):
+                mod = build(kind)
+                if sliced:
+                    shard_model_(mod, group)
+                xs = [x.clone().requires_grad_() for x in inputs(kind)]
+                y = call(kind, mod, xs, dtype)
+                g = torch.randn(y.shape, generator=torch.Generator()
+                                .manual_seed(3)).to(y.dtype)
+                y.backward(g)
+                runs.append((y.detach().float(), [x.grad for x in xs],
+                             {n: p.grad for n, p in mod.named_parameters()}))
+            (y0, dx0, dp0), (y1, dx1, dp1) = runs
+            key = f"{kind}/{str(dtype)[6:]}"
+            params = {}
+            for name, g in dp0.items():
+                dim = tp_dim(name)
+                if dim is not None:
+                    n = g.shape[dim] // world
+                    g = g.narrow(dim, rank * n, n)
+                params[name] = rel(dp1[name].float(), g.float())
+            out[key] = {"out": rel(y1, y0),
+                        "dx": max(rel(a.float(), b.float())
+                                  for a, b in zip(dx1, dx0)),
+                        "params": params, "sliced": sorted(
+                            n for n in dp0 if tp_dim(n) is not None)}
+    cfg = DiCoWConfig(**args["model"])
+    full = init_dicow_(DiCoW(cfg), torch.Generator().manual_seed(4)) \
+        .state_dict()
+    local = shard_state_dict(full, rank, world)
+    back = gather_state_dict(local, group)
+    out["round_trip"] = sorted(back) == sorted(full) and all(
+        torch.equal(back[k], v) for k, v in full.items())
+    out["local_shapes"] = {k: list(v.shape) for k, v in local.items()
+                           if tp_dim(k) is not None}
+    return out
+
+
+def run_batches(outdir, rank, args):
+    """The fine-tune's loading path through ``ModelTrainer._fit`` with the
+    Trainer's loop replaced: each batch this rank receives, as a digest of
+    its arrays, and the batches its own loader builds for the same data
+    coordinate, for comparison (the collator's augmentations draw from
+    unseeded global generators)."""
+    import hashlib
+
+    import numpy as np
+
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.parallel import dist
+    from ts_asr_whisper_tpu_torch.parallel.mesh import DATA_AXIS, axis_rank
+    from ts_asr_whisper_tpu_torch.train import ModelTrainer
+    from ts_asr_whisper_tpu_torch.training import trainer as trainer_mod
+    from ts_asr_whisper_tpu_torch.training.dataloader import DataLoader
+
+    def digest(batch):
+        h = hashlib.sha256()
+        for k in sorted(batch):
+            h.update(k.encode() + np.ascontiguousarray(batch[k]).tobytes())
+        return h.hexdigest()
+
+    cfg = load_config(list(args["overrides"]), n_devices=dist.world_size())
+    mt = ModelTrainer(cfg, "cpu")
+    got = {}
+
+    def record(self, it):
+        got["data_rank"] = axis_rank(self.mesh, DATA_AXIS)
+        got["received"] = [digest(b) for _, b in zip(range(args["n"]), it)]
+        got["rows"] = cfg.training.per_device_train_batch_size
+        return trainer_mod.TrainState(0, self.state.phase)
+
+    trainer_mod.Trainer.train = record
+    mt._fit(2, 0, None, None, None, None)
+    t = cfg.training
+    own = DataLoader(mt.train_dataset, mt.collator,
+                     batch_size=t.per_device_train_batch_size
+                     * dist.world_size(), seed=t.seed, num_workers=1,
+                     process_index=got["data_rank"],
+                     process_count=args["data"])
+    got["own"] = [digest(b) for _, b in zip(range(args["n"]), own)]
+    first = next(iter(own))
+    got["local_rows"] = int(first["input_features"].shape[0])
+    return got
 
 
 def run_cli(outdir, rank, args):
@@ -169,7 +370,9 @@ def run_cli(outdir, rank, args):
             "decoded_batches": decoded, "scored": scored}
 
 
-MODES = {"primitives": run_primitives, "train": run_train, "cli": run_cli}
+MODES = {"primitives": run_primitives, "train": run_train, "cli": run_cli,
+         "resume": run_resume, "tp_modules": run_tp_modules,
+         "batches": run_batches}
 
 
 def spawn(mode, outdir, world, args, timeout=120):

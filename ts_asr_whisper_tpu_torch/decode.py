@@ -35,9 +35,9 @@ from .decoding.generation_config import GenerationConfig
 from .decoding.longform import longform_generate
 from .eval import native
 from .eval.metrics import compute_longform_metrics
-from .models.containers import WhisperContainer
+from .models.containers import WhisperContainer, model_config
 from .parallel import dist as pdist
-from .parallel.mesh import check_mesh
+from .parallel.mesh import MODEL_AXIS, check_mesh
 from .training.dataloader import eval_batches
 from .txt_norm import get_text_norm
 from .utils.logging_def import get_logger
@@ -89,11 +89,26 @@ def make_generation_config(container: WhisperContainer, cfg: Cfg,
 def check_scope(cfg: Cfg, world: Optional[int] = None) -> None:
     """Refuse the parts of a config that the port lacks, for a run over
     ``world`` ranks (default: this process group's size): a mesh other
-    than one ``data`` axis over every rank (parallel/mesh.py), and, at a
-    world above 1, what runs on one device only."""
+    than ``data`` or ``data`` x ``model`` over every rank
+    (parallel/mesh.py); a ``model`` axis that would split a head or the
+    MLP unevenly in a fine-tune (the port keeps whole heads on each rank,
+    where GSPMD would split a head's columns); and, at a world above 1,
+    what runs on one device only. A decode ignores the ``model`` axis: it
+    shards its batches over every rank, as the JAX CLI builds its eval
+    mesh from the local devices alone (train.py:171-181)."""
     t = cfg.training
     world = pdist.world_size() if world is None else world
-    check_mesh(t.mesh_shape, t.mesh_axis_names, world)
+    shape = check_mesh(t.mesh_shape, t.mesh_axis_names, world)
+    tp = dict(zip(t.mesh_axis_names, shape)).get(MODEL_AXIS, 1)
+    if tp > 1 and not t.decode_only:
+        mc = model_config(cfg)
+        for key in ("encoder_attention_heads", "decoder_attention_heads",
+                    "encoder_ffn_dim", "decoder_ffn_dim"):
+            if getattr(mc, key) % tp:
+                raise NotImplementedError(
+                    f"a 'model' axis of {tp} does not divide {key}="
+                    f"{getattr(mc, key)}: the port shards whole heads and "
+                    "MLP columns evenly over the model ranks")
     if world == 1:
         return
     if t.pretrain_encoder:

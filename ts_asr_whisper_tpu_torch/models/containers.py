@@ -44,55 +44,61 @@ _HF_KEYS = ("vocab_size", "num_mel_bins", "d_model", "encoder_layers",
 _TOKENIZER_FILES = ("tokenizer.json", "vocab.json", "tokenizer_config.json")
 
 
+def model_config(cfg: Cfg) -> DiCoWConfig:
+    """The architecture of ``cfg.model.whisper_model`` (its directory's
+    ``config.json``, or a size name) with the config's DiCoW settings; the
+    container then aligns its special-token ids with the tokenizer."""
+    m = cfg.model
+    overrides = dict(
+        ctc_weight=m.ctc_weight,
+        additional_layer=m.additional_layer,
+        additional_self_attention_layer=m.additional_self_attention_layer,
+        pre_ctc_sub_sample=m.pre_ctc_sub_sample,
+        use_fddt=m.use_fddt and cfg.training.use_fddt,
+        fddt_is_diagonal=m.fddt_is_diagonal,
+        fddt_bias_only=m.fddt_bias_only,
+        fddt_use_silence=m.fddt_use_silence,
+        fddt_use_target=m.fddt_use_target,
+        fddt_use_overlap=m.fddt_use_overlap,
+        fddt_use_non_target=m.fddt_use_non_target,
+        apply_fddt_to_n_layers=m.apply_fddt_to_n_layers,
+        fddt_init=m.fddt_init,
+        non_target_fddt_value=m.non_target_fddt_value,
+        use_pre_pos_fddt=m.use_pre_pos_fddt,
+        remove_timestamps_from_ctc=cfg.training.remove_timestamps_from_ctc,
+        use_enrollments=m.use_enrollments or cfg.data.use_enrollments,
+        scb_layers=m.scb_layers,
+        dtype=m.dtype,
+        param_dtype=m.param_dtype,
+        attention_impl=m.attention_impl,
+    )
+
+    local_dir = Path(m.whisper_model)
+    if (local_dir / "config.json").exists():
+        with open(local_dir / "config.json") as f:
+            hf_cfg = json.load(f)
+        base = {k: hf_cfg[k] for k in _HF_KEYS if k in hf_cfg}
+        return DiCoWConfig(**base, **overrides)
+    return make_config(m.whisper_model, **overrides)
+
+
 class WhisperContainer:
     def __init__(self, cfg: Cfg, device: torch.device, seed: int = 0):
         self.cfg = cfg
         self.device = torch.device(device)
-        m = cfg.model
-        model_id = m.whisper_model
-        self.attention_impl = resolve_attention_impl(m.attention_impl,
+        model_id = cfg.model.whisper_model
+        self.attention_impl = resolve_attention_impl(cfg.model.attention_impl,
                                                      self.device)
-
-        overrides = dict(
-            ctc_weight=m.ctc_weight,
-            additional_layer=m.additional_layer,
-            additional_self_attention_layer=m.additional_self_attention_layer,
-            pre_ctc_sub_sample=m.pre_ctc_sub_sample,
-            use_fddt=m.use_fddt and cfg.training.use_fddt,
-            fddt_is_diagonal=m.fddt_is_diagonal,
-            fddt_bias_only=m.fddt_bias_only,
-            fddt_use_silence=m.fddt_use_silence,
-            fddt_use_target=m.fddt_use_target,
-            fddt_use_overlap=m.fddt_use_overlap,
-            fddt_use_non_target=m.fddt_use_non_target,
-            apply_fddt_to_n_layers=m.apply_fddt_to_n_layers,
-            fddt_init=m.fddt_init,
-            non_target_fddt_value=m.non_target_fddt_value,
-            use_pre_pos_fddt=m.use_pre_pos_fddt,
-            remove_timestamps_from_ctc=cfg.training.remove_timestamps_from_ctc,
-            use_enrollments=m.use_enrollments or cfg.data.use_enrollments,
-            scb_layers=m.scb_layers,
-            dtype=m.dtype,
-            param_dtype=m.param_dtype,
-            attention_impl=m.attention_impl,
-        )
-
+        self.model_config = model_config(cfg)
         local_dir = Path(model_id) if Path(model_id).exists() else None
-        if local_dir and (local_dir / "config.json").exists():
-            with open(local_dir / "config.json") as f:
-                hf_cfg = json.load(f)
-            base = {k: hf_cfg[k] for k in _HF_KEYS if k in hf_cfg}
-            self.model_config = DiCoWConfig(**base, **overrides)
-        else:
-            self.model_config = make_config(model_id, **overrides)
 
         # HF tokenizer files -> the HF tokenizer, else the byte-level one.
         # Asked first, transformers 5.x "loads" a directory that holds only
         # config.json as a tokenizer without vocabulary or pad token.
         tok_path = str(local_dir) if local_dir and any(
             (local_dir / f).exists() for f in _TOKENIZER_FILES) else None
-        self.tokenizer = load_tokenizer(tok_path,
-                                        vocab_size=self.model_config.vocab_size)
+        self.tokenizer = load_tokenizer(
+            tok_path, vocab_size=self.model_config.vocab_size)
         if not hasattr(self.tokenizer, "upper_cased_tokens"):
             self.tokenizer.upper_cased_tokens = create_lower_uppercase_mapping(
                 self.tokenizer)

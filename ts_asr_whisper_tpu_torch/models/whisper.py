@@ -9,6 +9,12 @@ DiCoW state dict loads strictly. Per-layer weights live in
 Numerics as the JAX package: parameters may be stored in one dtype and cast
 to the compute dtype at use; layer norms, attention softmax and the logits
 run in fp32; exact (erf) GELU; q scaled by head_dim**-0.5.
+
+Tensor parallelism (parallel/tensor.py): after ``shard_model_`` each
+``Attention`` holds its local heads and each attention and layer its
+``model`` group (``tp_group``, None when whole). The inputs of the column-
+parallel projections go through ``copy_to_model`` once per distinct input;
+``out_proj`` and ``fc2`` are row-parallel (``row_linear``).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..ops.attention import plain_sdpa, sdpa
 from ..ops.beam_attention import (ancestry_attention,
                                   ancestry_attention_reference)
+from ..parallel.tensor import copy_to_model, row_parallel_linear
 from ..training.lora import merged_call as lora_merged_call
 from .config import DiCoWConfig
 
@@ -72,6 +79,16 @@ def linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """x @ W^T + b with weights and input cast to the compute dtype."""
     b = m.bias.to(dtype) if m.bias is not None else None
     return F.linear(x.to(dtype), m.weight.to(dtype), b)
+
+
+def row_linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+               group) -> torch.Tensor:
+    """``linear`` of a row-parallel projection: with a ``model`` group,
+    this rank's partial product, summed over the group, then the bias."""
+    if group is None:
+        return linear(m, x, dtype)
+    b = m.bias.to(dtype) if m.bias is not None else None
+    return row_parallel_linear(x.to(dtype), m.weight.to(dtype), b, group)
 
 
 REMAT_POLICIES = ("full", "dots", "attn")
@@ -134,37 +151,48 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    """HF WhisperAttention parameters: k_proj has no bias."""
+    """HF WhisperAttention parameters: k_proj has no bias. ``num_heads``
+    is the heads this rank holds (all of them unless tensor-sharded).
+    ``query`` / ``keys_values`` take their input after ``copy_to_model``
+    (``forward`` and ``EncoderLayer.attn_in`` apply it)."""
 
     def __init__(self, d: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
+        self.tp_group = None
         self.q_proj = nn.Linear(d, d)
         self.k_proj = nn.Linear(d, d, bias=False)
         self.v_proj = nn.Linear(d, d)
         self.out_proj = nn.Linear(d, d)
 
     def query(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        head_dim = x.shape[-1] // self.num_heads
-        return split_heads(linear(self.q_proj, x, dtype) * head_dim ** -0.5,
-                           self.num_heads)
+        q = linear(self.q_proj, x, dtype)
+        head_dim = q.shape[-1] // self.num_heads
+        return split_heads(q * head_dim ** -0.5, self.num_heads)
 
     def keys_values(self, x: torch.Tensor, dtype):
         return (split_heads(linear(self.k_proj, x, dtype), self.num_heads),
                 split_heads(linear(self.v_proj, x, dtype), self.num_heads))
 
+    def out(self, attn: torch.Tensor, dtype) -> torch.Tensor:
+        """The output projection of the heads' outputs (B, H, T, hd)."""
+        return row_linear(self.out_proj, merge_heads(attn), dtype,
+                          self.tp_group)
+
     def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor, dtype,
                 mask: Optional[torch.Tensor] = None,
                 flash: bool = False) -> torch.Tensor:
-        q = self.query(x_q, dtype)
-        k, v = self.keys_values(x_kv, dtype)
-        out = sdpa(q, k, v, mask, flash=flash)
-        return linear(self.out_proj, merge_heads(out), dtype)
+        xq = copy_to_model(x_q, self.tp_group)
+        xkv = xq if x_kv is x_q else copy_to_model(x_kv, self.tp_group)
+        q = self.query(xq, dtype)
+        k, v = self.keys_values(xkv, dtype)
+        return self.out(sdpa(q, k, v, mask, flash=flash), dtype)
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, d: int, num_heads: int, ffn: int):
         super().__init__()
+        self.tp_group = None
         self.self_attn = Attention(d, num_heads)
         self.self_attn_layer_norm = LayerNorm(d)
         self.fc1 = nn.Linear(d, ffn)
@@ -172,18 +200,19 @@ class EncoderLayer(nn.Module):
         self.final_layer_norm = LayerNorm(d)
 
     def mlp(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        return linear(self.fc2, gelu(linear(self.fc1, x, dtype)), dtype)
+        h = gelu(linear(self.fc1, copy_to_model(x, self.tp_group), dtype))
+        return row_linear(self.fc2, h, dtype, self.tp_group)
 
     def attn_in(self, x: torch.Tensor, dtype):
         """q, k, v of the self-attention over the pre-norm of x."""
-        h = self.self_attn_layer_norm(x)
+        h = copy_to_model(self.self_attn_layer_norm(x), self.tp_group)
         return (self.self_attn.query(h, dtype),
                 *self.self_attn.keys_values(h, dtype))
 
     def attn_out(self, x: torch.Tensor, out: torch.Tensor, dtype):
         """The rest of the layer from the attention core's output: output
         projection and residual, then the MLP block."""
-        x = x + linear(self.self_attn.out_proj, merge_heads(out), dtype)
+        x = x + self.self_attn.out(out, dtype)
         return x + self.mlp(self.final_layer_norm(x), dtype)
 
     def forward(self, x: torch.Tensor, dtype, flash: bool = False):
@@ -395,7 +424,7 @@ class WhisperDecoder(nn.Module):
             ks[:, :, pos:end] = k_new
             vs[:, :, pos:end] = v_new
             attn = plain_sdpa(q, ks[:, :, :end], vs[:, :, :end], self_mask)
-            x = x + linear(layer.self_attn.out_proj, merge_heads(attn), dt)
+            x = x + layer.self_attn.out(attn, dt)
             sel = None if alignment_slots is None else alignment_slots[li]
             x, sel_probs = self._cross_and_mlp(layer, x, cross_kv[li], sel)
             if sel_probs is not None:
@@ -411,7 +440,7 @@ class WhisperDecoder(nn.Module):
         h = layer.encoder_attn_layer_norm(x)
         q = layer.encoder_attn.query(h, dt)
         attn = cross_attention(q, cross, dt)
-        x = x + linear(layer.encoder_attn.out_proj, merge_heads(attn), dt)
+        x = x + layer.encoder_attn.out(attn, dt)
         x = x + layer.mlp(layer.final_layer_norm(x), dt)
         if sel is None:
             return x, None
@@ -448,6 +477,6 @@ class WhisperDecoder(nn.Module):
             attn = attend(q, k_new, v_new, cache_k, cache_v, hist, pos, n)
             cache_k[:, :, pos] = k_new[:, :, 0]
             cache_v[:, :, pos] = v_new[:, :, 0]
-            x = x + linear(layer.self_attn.out_proj, merge_heads(attn), dt)
+            x = x + layer.self_attn.out(attn, dt)
             x = self._cross_and_mlp(layer, x, cross_kv[li])[0]
         return self.layer_norm(x)

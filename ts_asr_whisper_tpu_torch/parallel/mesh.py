@@ -1,21 +1,28 @@
-"""Device mesh and model wrappers of the port: data parallelism over the
-ranks that torchrun starts, one rank per device.
+"""Device mesh and model wrappers of the port: data parallelism, and
+tensor parallelism over a ``model`` axis, over the ranks that torchrun
+starts, one rank per device.
 
 Counterpart of ts_asr_whisper_tpu/parallel/mesh.py:24-108:
 
-- ``make_mesh`` is ``init_device_mesh`` over a 1-D ``data`` axis that
-  spans the world (None without a process group: a plain single-process
-  run; torchrun with one rank gets a mesh of one); a shape that needs more
-  ranks than the world has raises ``ValueError`` as the JAX one does, one
-  that leaves ranks out raises too, and a ``model`` axis (tensor
-  parallelism, JAX mesh.py:41-88) raises ``NotImplementedError``;
-- ``wrap_model`` turns ``param_shardings``' choice into a wrapper:
-  replicated parameters are DDP (the gradient all-reduce XLA inserts), with
-  the gradients as views of its buckets, so they take no second copy;
+- ``make_mesh`` is ``init_device_mesh`` over ``("data",)`` or ``("data",
+  "model")``, row-major as JAX's ``devices.reshape(shape)`` (the rank at
+  (d, m) is d * tp + m); None without a process group (a plain
+  single-process run; torchrun with one rank gets a mesh of one); a shape
+  that needs more ranks than the world has raises ``ValueError`` as the
+  JAX one does, one that leaves ranks out raises too;
+- the ``model`` axis is tensor parallelism (parallel/tensor.py: the
+  parameters sliced by name, explicit collectives); ``full_state_dict`` /
+  ``load_full_state_dict`` gather and slice over it;
+- ``wrap_model`` turns ``param_shardings``' choice over ``data`` into a
+  wrapper of the (already TP-sliced) local tensors: replicated parameters
+  are DDP over the ``data`` group (the gradient all-reduce XLA inserts),
+  with the gradients as views of its buckets, so they take no second copy;
   ``shard_params`` is FSDP2 (``fully_shard``) over the ``data`` axis, the
   ZeRO-style sharding of parameters, gradients and optimizer state;
-- ``shard_batch`` has no counterpart: the DataLoader gives each rank its
-  local rows of every global batch (training/dataloader.py:87-88).
+- ``shard_batch`` has no counterpart: the DataLoader gives each data
+  coordinate its local rows of every global batch
+  (training/dataloader.py:87-88), and ``model_peer_batches``
+  (parallel/tensor.py) hands them to the model group.
 
 FSDP2 units: every encoder and decoder layer, the encoder and the whole
 model. The encoder runs its layers through ``attn_in`` / ``attn_out`` under
@@ -35,23 +42,22 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel as DDP
 
 from . import dist as pdist
+from .tensor import gather_state_dict, group_rank, model_group, \
+    shard_state_dict
 
-DATA_AXIS = "data"
+DATA_AXIS, MODEL_AXIS = "data", "model"
+AXES = ((DATA_AXIS,), (DATA_AXIS, MODEL_AXIS))
 
 
 def check_mesh(shape: Optional[Sequence[int]], axis_names: Sequence[str],
                world: int) -> Tuple[int, ...]:
     """The mesh shape (None -> (world,)), checked against what the port
-    runs: one ``data`` axis over every rank."""
+    runs: a ``data`` axis, or ``data`` x ``model``, over every rank."""
     shape = tuple(shape) if shape else (world,)
     names = tuple(axis_names)
-    if "model" in names:
-        raise NotImplementedError(
-            f"mesh axes {names}: a 'model' axis (tensor parallelism) is not "
-            "ported yet; it is the next slice of the port")
-    if names != (DATA_AXIS,) or len(shape) != 1:
+    if names not in AXES or len(shape) != len(names):
         raise ValueError(f"mesh shape {shape} over axes {names}: the port "
-                         f"runs one '{DATA_AXIS}' axis")
+                         f"runs the axes {AXES[0]} or {AXES[1]}")
     needed = math.prod(shape)
     if needed > world:
         raise ValueError(f"mesh shape {shape} needs {needed} devices, "
@@ -66,14 +72,37 @@ def check_mesh(shape: Optional[Sequence[int]], axis_names: Sequence[str],
 def make_mesh(shape: Optional[Sequence[int]] = None,
               axis_names: Sequence[str] = (DATA_AXIS,),
               device_type: str = "cuda"):
-    """The ``data`` mesh over every rank, or None without a process
-    group."""
+    """The mesh over every rank, or None without a process group."""
     shape = check_mesh(shape, axis_names, pdist.world_size())
     if not dist.is_initialized():
         return None
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(device_type, shape, mesh_dim_names=(DATA_AXIS,))
+    return init_device_mesh(device_type, shape,
+                            mesh_dim_names=tuple(axis_names))
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The ranks along ``axis`` (1 without a mesh or without the axis)."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 1
+    return mesh[axis].size()
+
+
+def axis_rank(mesh, axis: str) -> int:
+    """This rank's coordinate along ``axis`` (0 without it)."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+def axis_group(mesh, axis: str):
+    """The process group of this rank's peers along ``axis``; None without
+    the axis, and for the ``model`` axis of size 1 (nothing to sum)."""
+    if mesh is None or axis not in mesh.mesh_dim_names or (
+            axis == MODEL_AXIS and axis_size(mesh, axis) == 1):
+        return None
+    return mesh.get_group(axis)
 
 
 def is_sharded(model: nn.Module) -> bool:
@@ -90,12 +119,15 @@ def unwrap(model: nn.Module) -> nn.Module:
 def wrap_model(model: nn.Module, mesh, shard_params: bool,
                init_sync: bool = True) -> nn.Module:
     """The module the training step calls: ``model`` itself without a mesh;
-    FSDP2 over the mesh with ``shard_params`` (``model`` is sharded in
-    place and returned); else DDP over the parameters that need a gradient
-    now (rebuild it when that set changes). ``init_sync`` broadcasts rank
-    0's parameters first (DDP)."""
+    FSDP2 over the mesh's ``data`` axis with ``shard_params`` (``model`` is
+    sharded in place and returned); else DDP over the ``data`` group and
+    the parameters that need a gradient now (rebuild it when that set
+    changes). ``init_sync`` broadcasts the data group's first rank's
+    parameters first (DDP). Tensor-parallel parameters are sliced before
+    (``shard_model_``); data peers hold the same slices."""
     if mesh is None:
         return model
+    data = mesh[DATA_AXIS]
     if shard_params:
         from torch.distributed.fsdp import (fully_shard,
                                             register_fsdp_forward_method)
@@ -104,18 +136,18 @@ def wrap_model(model: nn.Module, mesh, shard_params: bool,
             return model
         encoder, decoder = model.encoder, model.decoder
         for layer in encoder.layers:
-            fully_shard(layer, mesh=mesh)
+            fully_shard(layer, mesh=data)
             register_fsdp_forward_method(layer, "attn_in")
             register_fsdp_forward_method(layer, "attn_out")
         for layer in decoder.layers:
-            fully_shard(layer, mesh=mesh)
-        fully_shard(encoder, mesh=mesh)
+            fully_shard(layer, mesh=data)
+        fully_shard(encoder, mesh=data)
         register_fsdp_forward_method(encoder, "ctc_logits")
-        fully_shard(model, mesh=mesh)
+        fully_shard(model, mesh=data)
         return model
     device = next(model.parameters()).device
     return DDP(model, device_ids=[device] if device.type == "cuda" else None,
-               process_group=mesh.get_group(), broadcast_buffers=False,
+               process_group=data.get_group(), broadcast_buffers=False,
                gradient_as_bucket_view=True, init_sync=init_sync)
 
 
@@ -143,21 +175,35 @@ def local(t: torch.Tensor) -> torch.Tensor:
 
 
 def full_state_dict(model: nn.Module, to_cpu: bool = True) -> dict:
-    """The unwrapped model's state dict with whole tensors. Under FSDP2 a
-    collective that every rank calls; with ``to_cpu`` only rank 0 receives
-    the tensors (the others get {}), else every rank does."""
+    """The unwrapped model's state dict with whole tensors, gathered over
+    the ``model`` group and unsharded from FSDP2: a collective that every
+    rank calls. With ``to_cpu`` only rank 0 receives the tensors, on the
+    host (the others get {}), else every rank does."""
+    group = model_group(model)
     if not is_sharded(model):
-        return unwrap(model).state_dict()
-    from torch.distributed.checkpoint.state_dict import (StateDictOptions,
-                                                         get_model_state_dict)
+        state = unwrap(model).state_dict()
+    else:
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, get_model_state_dict)
 
-    return get_model_state_dict(model, options=StateDictOptions(
-        full_state_dict=True, cpu_offload=to_cpu))
+        state = get_model_state_dict(model, options=StateDictOptions(
+            full_state_dict=True, cpu_offload=to_cpu and group is None))
+    if group is None:
+        return state
+    state = gather_state_dict(state, group)
+    if not to_cpu:
+        return state
+    return ({k: v.detach().cpu() for k, v in state.items()}
+            if pdist.is_zero_rank() else {})
 
 
 def load_full_state_dict(model: nn.Module, state: dict) -> None:
-    """Load whole tensors into a model, sharding them under FSDP2 (every
-    rank passes the full state)."""
+    """Load whole tensors into a model, sliced over the ``model`` group and
+    sharded under FSDP2 (every rank passes the full state)."""
+    group = model_group(model)
+    if group is not None:
+        state = shard_state_dict(state, group_rank(group),
+                                 dist.get_world_size(group))
     if not is_sharded(model):
         unwrap(model).load_state_dict(state)
         return

@@ -8,13 +8,17 @@ eval.
 Counterpart of the train branch of ts_asr_whisper_tpu/train.py
 (``ModelTrainer.__init__`` :82-142, ``_fit`` :314-399, ``train`` :401-490).
 Decoding and scoring go through ``decode.DecodeRunner``. Under torchrun the
-global batch is the micro-batch times the world size, each rank loads its
-local rows of it, the Trainer runs DDP or FSDP2 (parallel/mesh.py), the
-evaluations are sharded over the ranks, and every file of the run
-(checkpoints, ``metrics.jsonl``, ``hf_export/``, the eval outputs,
-``store_src``) is written once, by rank 0. Under FSDP2 a decode reads a
-plain copy of the model with its whole parameters on every rank, as the
-JAX package replicates its parameters for decoding (longform.py:397-402).
+global batch is the micro-batch times the world size (JAX train.py:354),
+split over the ``data`` axis: each data coordinate loads its local rows of
+it, and under tensor parallelism its ``model`` coordinate 0 alone builds
+them and hands them to its model peers (``model_peer_batches``). The
+Trainer runs DDP or FSDP2 over ``data`` and slices the model over
+``model`` (parallel/{mesh,tensor}.py), the evaluations are sharded over
+every rank, and every file of the run (checkpoints, ``metrics.jsonl``,
+``hf_export/``, the eval outputs, ``store_src``) is written once, by rank
+0. Under FSDP2 or tensor parallelism a decode reads a plain copy of the
+model with its whole parameters on every rank, as the JAX package
+replicates its parameters for decoding (longform.py:397-402).
 """
 
 from __future__ import annotations
@@ -35,11 +39,14 @@ from .decode import DecodeRunner, no_tf32
 from .models.containers import WhisperContainer
 from .models.dicow import DiCoW
 from .parallel import dist as pdist
-from .parallel.mesh import full_state_dict, is_sharded, load_full_state_dict
+from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_rank,
+                            axis_size, full_state_dict, is_sharded,
+                            load_full_state_dict)
+from .parallel.tensor import model_group, model_peer_batches
 from .training.checkpoints import (export_hf_checkpoint, restore_checkpoint,
                                    save_model_checkpoint)
 from .training.dataloader import DataLoader
-from .training.lora import lora_linears, merge_lora, merged
+from .training.lora import init_lora, lora_linears, merge_lora, merged
 from .training.trainer import Trainer, TrainState
 from .txt_norm import get_text_norm
 from .utils.logging_def import get_logger
@@ -126,13 +133,16 @@ class ModelTrainer:
                         "retry", resume_path)
 
     def _plain_model(self, model: DiCoW) -> DiCoW:
-        """``model`` itself, or, when FSDP2 shards it, a plain copy in eval
-        mode with its whole parameters on every rank (a collective)."""
-        if not is_sharded(model):
+        """``model`` itself, or, when FSDP2 or tensor parallelism shards
+        it, a plain copy in eval mode with its whole parameters (and LoRA
+        adapters) on every rank (a collective)."""
+        if not is_sharded(model) and model_group(model) is None:
             return model
         state = full_state_dict(model, to_cpu=False)
         with torch.device(self.runner.device):
             plain = DiCoW(model.cfg, flash=model.encoder.flash)
+        if any(lora_linears(model)):
+            init_lora(plain, torch.Generator(device=self.runner.device))
         plain.to(self.container.model_config.storage_dtype)
         plain.load_state_dict(state)
         return plain.eval()
@@ -180,6 +190,7 @@ class ModelTrainer:
                               save_best_fn=save_best_fn,
                               load_best_fn=load_best_fn,
                               start_step=start_step, steps_per_epoch=spe)
+            mesh = trainer.mesh
             loader = DataLoader(
                 self.train_dataset, self.collator, batch_size=global_bs,
                 seed=t.seed, num_workers=t.dataloader_num_workers,
@@ -187,11 +198,15 @@ class ModelTrainer:
                 worker_type=t.dataloader_worker_type,
                 num_epochs=(None if t.max_steps and t.max_steps > 0
                             else t.num_train_epochs),
-                # each rank feeds its local rows of every global batch
-                process_index=pdist.get_rank(),
-                process_count=pdist.world_size())
+                # each data coordinate feeds its local rows of every
+                # global batch
+                process_index=axis_rank(mesh, DATA_AXIS),
+                process_count=axis_size(mesh, DATA_AXIS))
+            build = axis_rank(mesh, MODEL_AXIS) == 0
+            batches = model_peer_batches(loader if build else (),
+                                         axis_group(mesh, MODEL_AXIS), build)
             try:
-                return trainer.train(iter(loader))
+                return trainer.train(batches)
             except Exception as e:
                 oom = isinstance(e, torch.OutOfMemoryError) or \
                     "out of memory" in str(e).lower()
@@ -199,7 +214,7 @@ class ModelTrainer:
                     raise
             # outside the handler: the traceback no longer holds the
             # failed attempt's tensors
-            trainer = loader = None
+            trainer = loader = batches = None
             t.per_device_train_batch_size = local_bs // 2
             t.gradient_accumulation_steps *= 2
             logger.warning("OOM at per-device batch %d -> retrying with %d "

@@ -12,7 +12,14 @@ forward (``merged_call``); a decode runs inside ``merged``, on weights
 merged in place once. A ~ N(0, 1 / r^2) (JAX: normal / r), drawn from a
 seeded ``torch.Generator`` (the numbers differ from ``jax.random``'s;
 ``models/convert.py::lora_state_dict_from_jax`` carries a JAX tree across),
-and B = 0, so a fresh adapter changes nothing."""
+and B = 0, so a fresh adapter changes nothing.
+
+Under tensor parallelism the adapted q / v projections are column-sharded
+and the adapters stay whole on every rank (the JAX ``lora`` leaves are
+replicated and GSPMD shards the merge): a rank adds the rows of
+scale * B A that its shard of W holds (``tp_rows``, set by
+parallel/tensor.py::shard_model_), so A and B receive partial gradients,
+which the trainer sums over the ``model`` group."""
 
 from __future__ import annotations
 
@@ -51,8 +58,12 @@ def init_lora(model: nn.Module, generator: torch.Generator,
 
 
 def _delta(m: nn.Linear) -> torch.Tensor:
-    """scale * B A, fp32."""
-    return (m.lora_B.float() @ m.lora_A.float()) * m.lora_scale
+    """scale * B A, fp32: the rows of this rank's shard of W."""
+    b = m.lora_B
+    rows = getattr(m, "tp_rows", None)
+    if rows is not None:
+        b = b[rows[0]:rows[1]]
+    return (b.float() @ m.lora_A.float()) * m.lora_scale
 
 
 def merged_call(module: nn.Module) -> Callable:

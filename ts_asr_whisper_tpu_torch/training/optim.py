@@ -24,7 +24,10 @@ optax computes it so that the same gradients give the same parameters:
 Under FSDP2 (``training.shard_params``) each rank steps on its shards of the
 parameters and gradients as plain tensors, with the same arithmetic; the
 clip reads the norm of the whole gradient, its squared sum added over the
-ranks in one all-reduce (``global_norm(..., group)``).
+ranks in one all-reduce (``global_norm(..., group)``). Under tensor
+parallelism each rank steps on its slices the same way; the clip's norm adds
+the squares of the sliced tensors over the ``model`` group and counts the
+whole ones once (``global_norm(..., sharded, tp_group)``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from torch import nn
 
 from ..config import TrainingConfig
 from ..parallel.mesh import local
+from ..parallel.tensor import tp_dim
 from ..utils.observability import global_norm
 
 LABELS = ("preheat", "base")  # the labels that train
@@ -122,14 +126,19 @@ class AdamW:
     """clip_by_global_norm + optax.adamw per label, over the parameters of
     ``groups`` (label -> list of parameters). ``step(grads)`` takes one
     gradient per parameter, in the order of ``params``: this rank's shard
-    of it when the parameters are sharded over ``group``."""
+    of it when the parameters are sharded over ``group``. ``sharded``
+    flags the parameters sliced over ``tp_group`` (tensor parallelism)."""
 
     def __init__(self, groups: Dict[str, List[nn.Parameter]],
-                 cfg: TrainingConfig, lr_multiplier: float, group=None):
+                 cfg: TrainingConfig, lr_multiplier: float, group=None,
+                 sharded: Optional[Dict[int, bool]] = None, tp_group=None):
         self.cfg = cfg
         self.groups = groups
         self.group = group
+        self.tp_group = tp_group
         self.params = [p for label in LABELS for p in groups.get(label, ())]
+        self.sharded = [bool(sharded and sharded.get(id(p)))
+                        for p in self.params]
         # what the update writes: the parameters, or this rank's shards
         self.local = [local(p) for p in self.params]
         self.schedules = {
@@ -148,7 +157,7 @@ class AdamW:
         cfg = self.cfg
         b1, b2, eps, wd = (cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
                            cfg.weight_decay)
-        g_norm = global_norm(grads, self.group)
+        g_norm = global_norm(grads, self.group, self.sharded, self.tp_group)
         clip = not bool(g_norm < cfg.max_grad_norm)
         count_inc = self.count + 1
         # optax computes the bias corrections in fp32
@@ -205,12 +214,13 @@ class MultiSteps:
 def build_optimizer(model: nn.Module, cfg: TrainingConfig,
                     prefixes_to_preheat: Sequence[str] = (),
                     frozen_keywords: Sequence[str] = (),
-                    preheat_only: bool = False, group=None
+                    preheat_only: bool = False, group=None, tp_group=None
                     ) -> Tuple[object, Dict[str, str]]:
     """(optimizer, labels): sets ``requires_grad`` from the labels, builds
     AdamW over the trainable parameters, wrapped in MultiSteps when
     ``gradient_accumulation_steps`` > 1. ``group``: the parameters are
-    sharded over its ranks (FSDP2)."""
+    sharded over its ranks (FSDP2); ``tp_group``: the model is tensor-
+    sharded over it."""
     labels = param_labels(model, prefixes_to_preheat, frozen_keywords,
                           preheat_only)
     groups: Dict[str, List[nn.Parameter]] = {}
@@ -219,7 +229,9 @@ def build_optimizer(model: nn.Module, cfg: TrainingConfig,
         if labels[name] != "frozen":
             groups.setdefault(labels[name], []).append(p)
     mult = cfg.fddt_lr_multiplier if cfg.use_custom_optimizer else 1.0
-    tx = AdamW(groups, cfg, mult, group)
+    sharded = {id(p): tp_dim(name) is not None
+               for name, p in model.named_parameters()} if tp_group else None
+    tx = AdamW(groups, cfg, mult, group, sharded, tp_group)
     if cfg.gradient_accumulation_steps > 1:
         tx = MultiSteps(tx, cfg.gradient_accumulation_steps)
     return tx, labels

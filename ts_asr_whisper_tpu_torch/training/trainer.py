@@ -1,9 +1,10 @@
 """Trainer of the port: the fine-tune step and the reference's training
 behaviours (two-phase FDDT preheat with a fresh optimizer at the unfreeze,
 gradient accumulation, eval-driven early stopping, checkpoint and
-best-model callbacks), on one device or data-parallel over the ranks of a
-``data`` mesh (parallel/mesh.py: DDP, or FSDP2 under
-``training.shard_params``).
+best-model callbacks), on one device, data-parallel over the ranks of a
+``data`` mesh axis (parallel/mesh.py: DDP, or FSDP2 under
+``training.shard_params``) and tensor-parallel over a ``model`` axis
+(parallel/tensor.py).
 
 Counterpart of ts_asr_whisper_tpu/training/trainer.py:36-324.
 ``state.step`` counts micro-batches as the JAX trainer's does (each
@@ -15,13 +16,23 @@ With ``training.use_lora`` the decoder's q/v projections get LoRA adapters
 (training/lora.py) before the first optimizer is built.
 
 Data parallelism keeps the JAX step's semantics over the global batch: each
-rank's loss is its share of the global batch's loss (models/losses.py:
-its token sum over the all-reduced global token count), taken times the
-world size for the backward since DDP and FSDP2 average the gradients; the
-logged loss and its parts are the global batch's. Every micro-batch
-all-reduces its gradients, as each JAX step does. The DDP wrapper is built
-again at the unfreeze: it registers only the parameters that need a
-gradient when it is built.
+data coordinate's loss is its share of the global batch's loss
+(models/losses.py: its token sum over the global token count, all-reduced
+over the ``data`` group), taken times the ``data`` size for the backward
+since DDP and FSDP2 average the gradients over it; the logged loss and its
+parts are the global batch's. Model peers hold the same rows and compute
+the same loss, so every sum over ranks runs over the ``data`` group. Every
+micro-batch all-reduces its gradients, as each JAX step does. The DDP
+wrapper is built again at the unfreeze: it registers only the parameters
+that need a gradient when it is built.
+
+Tensor parallelism slices the model before it is wrapped
+(``shard_model_``). The gradient norm adds the squares of the sliced
+tensors over the ``model`` group. The gradients of the whole tensors are
+made the same on every model rank before the clip and the update
+(``sync_whole_grads``): averaged, since the card computes them through
+kernels that add in run-to-run order, and, for the LoRA adapters, whole on
+every rank but fed by each rank's rows of the merge, summed.
 """
 
 from __future__ import annotations
@@ -38,8 +49,10 @@ from ..models.config import DiCoWConfig
 from ..models.dicow import DiCoW
 from ..models.losses import dicow_loss
 from ..parallel import dist as pdist
-from ..parallel.mesh import (all_reduce_sum, local, make_mesh, release,
-                             shard_group, unwrap, wrap_model)
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_reduce_sum,
+                             axis_group, axis_size, local, make_mesh,
+                             release, shard_group, unwrap, wrap_model)
+from ..parallel.tensor import shard_model_, sync_whole_grads, tp_dim
 from ..utils.logging_def import get_logger
 from ..utils.observability import (MetricsLogger, global_norm,
                                    module_grad_norms, start_trace,
@@ -75,10 +88,10 @@ def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
     """Teacher-forced forward and the joint loss (trainer.py:59-82), with
     SE-DiCoW's enrollment features and STNO when the batch carries them.
     LoRA adapters merge once in the decoder's forward (training/lora.py).
-    ``model`` may be a DDP / FSDP2 wrapper over the ``data`` ``mesh``: the
-    CTC head runs on the wrapped model, in the same backward, and the
-    loss and its parts are this rank's shares of the global batch's (one
-    all-reduce of the token count)."""
+    ``model`` may be a DDP / FSDP2 wrapper over the ``data`` axis of
+    ``mesh``: the CTC head runs on the wrapped model, in the same backward,
+    and the loss and its parts are this data coordinate's shares of the
+    global batch's (one all-reduce of the token count over ``data``)."""
     labels = batch["labels"].long()
     dec_in = shift_tokens_right(labels, model_cfg.pad_token_id,
                                 model_cfg.decoder_start_token_id)
@@ -90,9 +103,9 @@ def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
         enc_logits = unwrap(model).encoder.ctc_logits(enc_hidden)
     n_tokens, world = None, 1
     if mesh is not None:
-        world = mesh.size()
+        world = axis_size(mesh, DATA_AXIS)
         n_tokens = all_reduce_sum((labels != -100).sum().float(),
-                                  mesh.get_group()).clamp_min(1.0)
+                                  axis_group(mesh, DATA_AXIS)).clamp_min(1.0)
     upp = batch.get("upp_labels")
     return dicow_loss(logits, enc_logits, labels,
                       upp.long() if upp is not None else None, model_cfg,
@@ -101,7 +114,7 @@ def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
 
 
 # the parts of the loss that are shares of the global batch's (summed over
-# the ranks when logged); the gradient norm is every rank's alike
+# the data group when logged); the gradient norm is every rank's alike
 SHARE_KEYS = ("loss", "dec_loss", "ctc_loss")
 
 
@@ -175,6 +188,9 @@ class Trainer:
         self.state = TrainState(start_step, phase)
         self.mesh = make_mesh(t.mesh_shape, t.mesh_axis_names,
                               self.device.type)
+        # the model axis: each rank keeps its slices (none at tp = 1)
+        self.tp_group = axis_group(self.mesh, MODEL_AXIS)
+        shard_model_(model, self.tp_group)
         self.wrapped = None
         if t.shard_params:
             # FSDP2 replaces the parameters by their shards, which the
@@ -192,7 +208,8 @@ class Trainer:
             self.model, self.cfg.training,
             prefixes_to_preheat=self.cfg.model.prefixes_to_preheat,
             frozen_keywords=self.cfg.model.params_to_keep_frozen_keywords,
-            preheat_only=preheat_only, group=self.shard_group)
+            preheat_only=preheat_only, group=self.shard_group,
+            tp_group=self.tp_group)
         return tx
 
     def _wrap(self, init_sync: bool) -> None:
@@ -233,13 +250,23 @@ class Trainer:
             p.grad = None
         total, parts = loss_fn(self.wrapped, self.model_cfg, batch,
                                self.num_prefix_tokens, self.mesh)
-        # DDP and FSDP2 average the gradients over the ranks: the sum of
-        # the shares' gradients is the global batch's
-        (total if self.mesh is None else total * self.mesh.size()).backward()
+        # DDP and FSDP2 average the gradients over the data group: the sum
+        # of the shares' gradients is the global batch's
+        (total * axis_size(self.mesh, DATA_AXIS)).backward()
+        if self.tp_group is not None:
+            # the whole tensors' gradients alike on every model rank; the
+            # LoRA adapters' summed (each rank's rows of B A)
+            whole = [(n, p) for n, p in self.model.named_parameters()
+                     if p.grad is not None and tp_dim(n) is None]
+            sync_whole_grads([local(p.grad) for _, p in whole],
+                             [n.endswith(("lora_A", "lora_B"))
+                              for n, _ in whole], self.tp_group)
         grads = [local(p.grad) if p.grad is not None
                  else torch.zeros_like(local(p)) for p in params]
         parts = {k: v.detach() for k, v in parts.items()}
-        parts["grad_norm"] = global_norm(grads, self.shard_group)
+        inner = getattr(self.tx, "inner", self.tx)  # under MultiSteps
+        parts["grad_norm"] = global_norm(grads, self.shard_group,
+                                         inner.sharded, self.tp_group)
         if self.cfg.training.watch_grads:
             # keyed as the JAX trainer's grad_norm/<encoder|decoder>/<module>
             # and, for the LoRA adapters, grad_norm/lora/decoder
@@ -247,7 +274,7 @@ class Trainer:
                 ((f"lora.{n.removeprefix('model.')}"
                   if n.endswith(("lora_A", "lora_B")) else n, p)
                  for n, p in self.model.named_parameters()), sep="/",
-                group=self.shard_group))
+                group=self.shard_group, tp_group=self.tp_group))
         self.tx.step(grads)
         for p in params:
             p.grad = None
@@ -317,7 +344,7 @@ class Trainer:
             return parts
         keys = [k for k in SHARE_KEYS if k in parts]
         summed = all_reduce_sum(torch.stack([parts[k] for k in keys]),
-                                self.mesh.get_group())
+                                axis_group(self.mesh, DATA_AXIS))
         return {**parts, **dict(zip(keys, summed))}
 
     def _run_eval(self) -> bool:

@@ -14,7 +14,7 @@ import json
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -107,37 +107,75 @@ def profile_trace(log_dir: Optional[str]):
         yield
 
 
-def global_norm(tensors: Iterable[torch.Tensor],
-                group=None) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32
-    (optax.global_norm). With ``group``, the tensors are this rank's shards
-    of tensors sharded over the group's ranks (FSDP2): the sum of squares
-    is added over the ranks first, in one all-reduce, so every rank gets
-    the norm of the whole tensors."""
-    sq = [t.float().square().sum() for t in tensors]
-    if not sq:
-        return torch.zeros(())
-    total = torch.stack(sq).sum()
+def _sq_sum(tensors: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
+    if not tensors:
+        return None
+    return torch.stack([t.float().square().sum() for t in tensors]).sum()
+
+
+def _norms(parts: Sequence[Sequence[Tuple[torch.Tensor, bool]]],
+           group=None, tp_group=None) -> torch.Tensor:
+    """The fp32 norm of each part, a list of (tensor, TP-sharded) pairs: the
+    squares of the TP-sharded tensors (this rank's slices) added over
+    ``tp_group`` in one all-reduce, those of the others counted once, then
+    every part's sum added over ``group`` (the FSDP2 shards) in one
+    all-reduce."""
+    tp_sq = [_sq_sum([t for t, sharded in part if sharded]) for part in parts]
+    rep_sq = [_sq_sum([t for t, sharded in part if not sharded])
+              for part in parts]
+    dev = next((s.device for s in tp_sq + rep_sq if s is not None),
+               torch.device("cpu"))
+    zero = torch.zeros((), device=dev)
+    tp_tot = torch.stack([zero if s is None else s for s in tp_sq])
+    if tp_group is not None:
+        torch.distributed.all_reduce(tp_tot, group=tp_group)
+    total = tp_tot + torch.stack([zero if s is None else s for s in rep_sq])
     if group is not None:
         torch.distributed.all_reduce(total, group=group)
     return total.sqrt()
 
 
+def global_norm(tensors: Iterable[torch.Tensor], group=None,
+                sharded: Optional[Sequence[bool]] = None,
+                tp_group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32
+    (optax.global_norm). With ``group``, the tensors are this rank's shards
+    of tensors sharded over the group's ranks (FSDP2); with ``tp_group``,
+    those flagged in ``sharded`` are this rank's slices of tensors split
+    over the ``model`` group (tensor parallelism), the others whole on
+    every rank of it. One all-reduce per group; every rank gets the norm
+    of the whole tensors."""
+    tensors = list(tensors)
+    if not tensors:
+        return torch.zeros(())
+    flags = sharded if sharded is not None else [False] * len(tensors)
+    return _norms([list(zip(tensors, flags))], group, tp_group)[0]
+
+
 def module_grad_norms(named: Iterable[Tuple[str, torch.nn.Parameter]],
-                      sep: str = ".", group=None) -> Dict[str, torch.Tensor]:
+                      sep: str = ".", group=None,
+                      tp_group=None) -> Dict[str, torch.Tensor]:
     """Gradient norm per module: the first two parts of the parameter name
     (``model.`` dropped) joined by ``sep``, as ``grad_norm/<top><sep><mod>``.
     A parameter without a gradient counts as a zero gradient. ``group``:
-    the parameters are sharded over its ranks (``global_norm``)."""
+    the parameters are sharded over its ranks; ``tp_group``: tensor-
+    parallel ones are sliced over it (``global_norm``, one all-reduce per
+    group for all modules)."""
     from ..parallel.mesh import local
+    from ..parallel.tensor import tp_dim
 
     groups: Dict[str, list] = {}
     for name, p in named:
         key = sep.join(name.removeprefix("model.").split(".")[:2])
         grads = groups.setdefault(f"grad_norm/{key}", [])
         if p.grad is not None:
-            grads.append(local(p.grad))
-    return {k: global_norm(v, group) for k, v in groups.items()}
+            grads.append((local(p.grad), tp_group is not None
+                          and tp_dim(name) is not None))
+    keys = list(groups)
+    if not keys:
+        return {}
+    norms = _norms([groups[k] for k in keys], group, tp_group)
+    return dict(zip(keys, norms))
 
 
 def grad_param_norms(named: Iterable[Tuple[str, torch.nn.Parameter]]
