@@ -163,7 +163,28 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      TP_FORWARD_TOL of an unwrapped run of the same model before the first
      update and 10 x the spread of 4 unwrapped runs after it; the SCB cross-
      attention's flash forward and backward at 10 local heads, against
-     their plain versions on SCB 0's own inputs.
+     their plain versions on SCB 0's own inputs;
+ 25. (on phase 20's corpus) the fine-tune with LoRA (training.use_lora=
+     true), 4 micro-batches with no preheat (2 updates), on two ranks
+     sharing the card over gloo at micro-batch 2, with DDP and with FSDP2
+     (training.shard_params=true): each run's ranks log the same losses;
+     before the first update both are within DP_FORWARD_TOL of an
+     unwrapped LoRA run in this process, and FSDP2's losses stay within 10
+     x the largest spread of 4 unwrapped LoRA runs of DDP's on the same
+     split of every micro-batch; FSDP2's gathered
+     adapters and weights end with equal checksums on both ranks; the flash
+     forward and backward in every encoder layer and the CTC head of every
+     micro-batch, and against their plain versions on layer 0's own inputs
+     under FSDP2; the FSDP2 all-gather and reduce-scatter bytes and calls
+     per micro-batch, ms per update and peak memory per rank;
+ 26. phase 21's fine-tune with training.auto_find_batch_size=true, started
+     at micro-batch 4 and accumulation 1 on two ranks over gloo, rank 1's
+     memory capped at AUTOBATCH_CAP_GIB: rank 1's memory probe
+     runs out of memory at micro-batch 4, rank 0's fits, and both ranks
+     halve together to micro-batch 2 and accumulation 2 (phase 21's
+     settings), where both probes fit; the ranks log the same losses,
+     within the phase-20 tolerance of the unwrapped run and of phase 21's;
+     each probe's outcome, time, peak memory and flash launches per rank.
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing here imports jax or the JAX package.
 """
@@ -290,7 +311,18 @@ TP_FORWARD_TOL = 1e-4
 # coordinate's weight gradients rounded to bf16 over its 2 rows) moves the
 # losses by up to 5.1e-4 (PERF.md §6)
 TP_SE_LAYERS, TP_SE_SCBS, TP_SE_RUNS = 4, 2, 4
-# wall-time limit of one torchrun launch of phases 20-24
+# phase 25: phase 20's fine-tune with LoRA, cut to 4 micro-batches with no
+# preheat (2 updates, the adapters training from the first); its tolerance
+# from the spread of 4 unwrapped runs, as phase 24's (a pair's spread moved
+# 20x between two calls, 8.6e-6 to 1.7e-4: PERF.md §6)
+LORA_FSDP_STEPS, LORA_FSDP_RUNS = 4, 4
+# phase 26: rank 1's memory cap (GiB; torch.cuda.
+# set_per_process_memory_fraction of the card's), between the memory
+# probe's peak at micro-batch 2 (~23.1 GiB allocated, ~24.2 reserved) and
+# at 4 (~27.0 allocated) on a rank of two DDP ranks sharing the card, with
+# labels 448 wide: the phase prints both
+AUTOBATCH_CAP_GIB = 25.5
+# wall-time limit of one torchrun launch of phases 20-26
 CHILD_TIMEOUT = 420
 
 
@@ -2339,25 +2371,104 @@ def phase_mel_topk(dev) -> None:
                     for n, (ms, d) in res.items()))
 
 
-# -- phases 20-22: data parallelism through the CLI under torchrun ----------
+# -- phases 20-26: data and tensor parallelism through the CLI under torchrun
+
+
+def _checksums(tensors) -> list:
+    """Two checksums a tensor: the sum of its fp32 bit patterns and the sum
+    of them weighted by position."""
+    sums = []
+    with torch.no_grad():
+        for t in tensors:
+            bits = t.detach().float().reshape(-1).view(torch.int32) \
+                .to(torch.int64)
+            pos = torch.arange(1, bits.numel() + 1, device=bits.device)
+            sums += [bits.sum(), (bits * pos).sum()]
+    return torch.stack(sums).tolist()
 
 
 def _record_trainer(record: dict):
     """Patch the Trainer to record what every rank logs, a digest of each
     batch's features and STNO masks, its loop's wall time and peak memory,
-    the bytes of the gradients it all-reduces per micro-batch in each phase
-    and, at the end, a checksum of every trainable parameter (the sum of
-    its fp32 bit patterns and the sum of them weighted by position, this
-    rank's shard under FSDP2 or tensor parallelism) and which of them are
-    TP slices; returns the function that restores it."""
+    the bytes of the gradients it all-reduces per micro-batch in each phase,
+    the FSDP2 all-gather and reduce-scatter bytes and calls of the loop,
+    each memory probe of auto_find_batch_size (micro-batch, outcome, kernel
+    launches, ms, memory at its start and its peak) and, at the end, the
+    micro-batch and accumulation it trained at, a checksum of every
+    trainable parameter (``_checksums``: this rank's shard under FSDP2 or
+    tensor parallelism) and which of them are TP slices, and under FSDP2
+    the checksums of the gathered whole state; returns the function that
+    restores it."""
     import hashlib
 
-    from ts_asr_whisper_tpu_torch.parallel.mesh import local
+    import torch.distributed as tdist
+
+    from ts_asr_whisper_tpu_torch import kernels
+    from ts_asr_whisper_tpu_torch.parallel.mesh import (full_state_dict,
+                                                        is_sharded, local)
     from ts_asr_whisper_tpu_torch.parallel.tensor import model_group, tp_dim
     from ts_asr_whisper_tpu_torch.training import trainer as trainer_mod
 
     loop = trainer_mod.Trainer.train
     unfreeze = trainer_mod.Trainer._maybe_unfreeze
+    probe = trainer_mod.Trainer.probe_step
+    # FSDP2's collectives, under each name this torch has (the newer
+    # all_gather_single / reduce_scatter_single, the older names, which may
+    # call them: only the outermost call counts)
+    names = [n for n in ("all_gather_single", "all_gather_into_tensor",
+                         "reduce_scatter_single", "reduce_scatter_tensor")
+             if hasattr(tdist, n)]
+    collectives = {n: getattr(tdist, n) for n in names}
+    moved = {"all_gather": 0, "reduce_scatter": 0, "all_gather_calls": 0,
+             "reduce_scatter_calls": 0}
+    depth = [0]
+    record["probes"] = []
+
+    def counted(name):
+        """The collective, adding the bytes of each rank's whole tensor
+        (the gathered output; the input before the reduce-scatter)."""
+        fn = collectives[name]
+        kind = "all_gather" if name.startswith("all_gather") \
+            else "reduce_scatter"
+        arg, pos = (("output_tensor", 0) if kind == "all_gather"
+                    else ("input", 1))
+
+        def call(*args, **kwargs):
+            if not depth[0]:
+                t = kwargs[arg] if arg in kwargs else args[pos]
+                moved[kind] += t.numel() * t.element_size()
+                moved[f"{kind}_calls"] += 1
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return call
+
+    for n in names:
+        setattr(tdist, n, counted(n))
+    def probe_step(self, batch):
+        entry = {"micro_batch": self.cfg.training.per_device_train_batch_size,
+                 "outcome": "fits"}
+        before = dict(kernels.launch_counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        entry["at_start"] = torch.cuda.memory_allocated() / 2**30
+        t1 = time.perf_counter()
+        try:
+            probe(self, batch)
+        except Exception as e:
+            entry["outcome"] = type(e).__name__
+            raise
+        finally:
+            torch.cuda.synchronize()
+            entry.update(
+                ms=(time.perf_counter() - t1) * 1e3,
+                peak=torch.cuda.max_memory_allocated() / 2**30,
+                reserved=torch.cuda.max_memory_reserved() / 2**30,
+                launches={k: v - before[k]
+                          for k, v in kernels.launch_counts.items()})
+            record["probes"].append(entry)
 
     def grad_bytes(trainer):
         return sum(local(p).numel() * 4 for p in trainer.tx.params)
@@ -2393,19 +2504,21 @@ def _record_trainer(record: dict):
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         record["loop_start"] = t1
+        at_start = dict(moved)
         out = loop(self, digested(it))
         torch.cuda.synchronize()
         record["loop"] = time.perf_counter() - t1
         record["peak"] = torch.cuda.max_memory_allocated() / 2**30
+        record["fsdp_bytes"] = {k: moved[k] - at_start[k] for k in moved}
         record["base_updates"] = getattr(self.tx, "inner", self.tx).count
-        with torch.no_grad():
-            sums = []
-            for p in self.tx.params:
-                bits = local(p).detach().reshape(-1).view(torch.int32) \
-                    .to(torch.int64)
-                pos = torch.arange(1, bits.numel() + 1, device=bits.device)
-                sums += [bits.sum(), (bits * pos).sum()]
-            record["checksums"] = torch.stack(sums).tolist()
+        record["micro_batch"] = self.cfg.training.per_device_train_batch_size
+        record["accum"] = self.cfg.training.gradient_accumulation_steps
+        record["checksums"] = _checksums(local(p) for p in self.tx.params)
+        if is_sharded(self.model):
+            state = full_state_dict(self.model, to_cpu=False)
+            record["gathered_checksums"] = _checksums(
+                state[k] for k in sorted(state))
+            del state
         names = {id(p): n for n, p in self.model.named_parameters()}
         tp = model_group(self.model) is not None
         record["sliced"] = [tp and tp_dim(names[id(p)]) is not None
@@ -2414,32 +2527,47 @@ def _record_trainer(record: dict):
 
     trainer_mod.Trainer.train = train
     trainer_mod.Trainer._maybe_unfreeze = watched_unfreeze
+    trainer_mod.Trainer.probe_step = probe_step
 
     def restore():
         trainer_mod.Trainer.train = loop
         trainer_mod.Trainer._maybe_unfreeze = unfreeze
+        trainer_mod.Trainer.probe_step = probe
+        for n, fn in collectives.items():
+            setattr(tdist, n, fn)
     return restore
 
 
 def child(spec_path: str) -> int:
-    """One rank of phases 20-24, started by torchrun: the CLI's main with
+    """One rank of phases 20-26, started by torchrun: the CLI's main with
     the spec's argv, the launch counts and the TP all-reduce bytes set to
     0 just before and read just after, the eval batches this rank collates
     and its encoder calls counted; with the spec's ``flash_sites``, the
-    first encoder layer's and the first SCB's own inputs are kept and,
-    after the run, the flash kernels held against their plain versions on
-    them (local heads under tensor parallelism); its record goes to
-    <out>/rank<RANK>.json."""
+    q, k, v of the first encoder layer's self-attention and of the first
+    SCB's cross-attention are kept as the flash forward receives them in
+    their first forward under grad and, after the run, the flash kernels
+    held against their plain versions on them (local heads under tensor
+    parallelism); with the spec's ``memory_fraction``
+    for this rank, its share of the card's memory is capped before the CLI
+    starts; its record goes to <out>/rank<RANK>.json."""
     from ts_asr_whisper_tpu_torch import __main__ as cli
     from ts_asr_whisper_tpu_torch import decode, kernels
     from ts_asr_whisper_tpu_torch.models.dicow import SCB, DiCoWEncoder
-    from ts_asr_whisper_tpu_torch.models.whisper import EncoderLayer
+    from ts_asr_whisper_tpu_torch.models.whisper import (DecoderLayer,
+                                                         EncoderLayer)
+    from ts_asr_whisper_tpu_torch.ops import attention
     from ts_asr_whisper_tpu_torch.parallel import tensor as tp_mod
 
+    import faulthandler
+
+    faulthandler.enable()  # a crash of a rank prints its Python stack
     spec = json.loads(Path(spec_path).read_text())
     rank = int(os.environ.get("RANK", "0"))
+    fraction = spec.get("memory_fraction", {}).get(str(rank))
+    if fraction is not None:
+        torch.cuda.set_per_process_memory_fraction(fraction)
     record = {"logged": [], "decoded": [], "encoder_calls": 0,
-              "entered": time.time()}
+              "entered": time.time(), "memory_fraction": fraction}
     _record_trainer(record)
     eval_batches = decode.eval_batches
 
@@ -2448,15 +2576,36 @@ def child(spec_path: str) -> int:
             record["decoded"].append(bi)
             yield bi, batch
 
-    sites = {}
+    sites, active = {}, []
+
+    def site_kind(module):
+        if isinstance(module, DecoderLayer):
+            return None
+        return next((kind for kind, cls in (("layer0", EncoderLayer),
+                                             ("scb0", SCB))
+                     if isinstance(module, cls)), None)
+
+    def enter_site(module, args):
+        kind = site_kind(module)
+        if (spec.get("flash_sites") and kind and kind not in sites
+                and torch.is_grad_enabled()):
+            active.append(kind)
+
+    flash_mha = attention.flash_mha
+
+    def flash_at_sites(q, k, v):
+        # the first flash call inside an encoder layer or an SCB: its self-
+        # or cross-attention, on the main path's own q, k, v
+        if active and active[-1] not in sites:
+            sites[active[-1]] = (q.shape[-3], tuple(
+                x.detach().clone() for x in (q, k, v)))
+        return flash_mha(q, k, v)
 
     def count_encoder(module, args, output):
         if isinstance(module, DiCoWEncoder):
             record["encoder_calls"] += 1
-        for kind, cls in (("layer0", EncoderLayer), ("scb0", SCB)):
-            if (spec.get("flash_sites") and kind not in sites
-                    and type(module) is cls and torch.is_grad_enabled()):
-                sites[kind] = (module, args[0].detach())
+        if active and site_kind(module) == active[-1]:
+            active.pop()
 
     do_eval = decode.DecodeRunner.do_eval
 
@@ -2470,7 +2619,10 @@ def child(spec_path: str) -> int:
 
     decode.eval_batches = counted_batches
     decode.DecodeRunner.do_eval = timed_eval
-    hook = torch.nn.modules.module.register_module_forward_hook(count_encoder)
+    hooks = (torch.nn.modules.module.register_module_forward_pre_hook(
+        enter_site),
+        torch.nn.modules.module.register_module_forward_hook(count_encoder))
+    attention.flash_mha = flash_at_sites
     for name in kernels.launch_counts:
         kernels.launch_counts[name] = 0
     for kind in tp_mod.reduced_bytes:
@@ -2479,7 +2631,9 @@ def child(spec_path: str) -> int:
     try:
         metrics = cli.main(spec["argv"])
     finally:
-        hook.remove()
+        for hook in hooks:
+            hook.remove()
+        attention.flash_mha = flash_mha
     wall = time.perf_counter() - t0
     record.update(launches=dict(kernels.launch_counts),
                   tp_bytes=dict(tp_mod.reduced_bytes), wall=wall,
@@ -2490,36 +2644,30 @@ def child(spec_path: str) -> int:
         # (the HF export)
         record["setup"] = record.pop("loop_start") - t0
         record["after"] = wall - record["setup"] - record["loop"]
-    for kind, (module, x) in sorted(sites.items()):
-        if kind == "layer0":
-            attn = module.self_attn
-            with torch.no_grad():
-                q, k, v = module.attn_in(x, x.dtype)
-        else:  # the sample stream's queries on the enrollment's keys
-            attn = module.cae.cross_attn
-            with torch.no_grad():
-                q = attn.query(x[:, 0], x.dtype)
-                k, v = attn.keys_values(x[:, 1], x.dtype)
+    for kind, (heads, (q, k, v)) in sorted(sites.items()):
         record["flash_sites"][kind] = {
-            "heads": attn.num_heads, "shape": list(q.shape),
-            **check_flash_site(f"[rank {rank}] {kind} at {attn.num_heads} "
-                               "local heads", q, k, v, seed=7)}
+            "heads": heads, "shape": list(q.shape),
+            **check_flash_site(f"[rank {rank}] {kind} at {heads} local "
+                               "heads", q, k, v, seed=7)}
     (Path(spec["out"]) / f"rank{rank}.json").write_text(json.dumps(record))
     return 0
 
 
-def run_ranks(tag: str, argv: list, nproc: int,
-              flash_sites: bool = False) -> list:
+def run_ranks(tag: str, argv: list, nproc: int, flash_sites: bool = False,
+              memory_fraction: dict = None) -> list:
     """``python -m torch.distributed.run --standalone --nproc-per-node
-    nproc chip_smoke.py --child <spec>``: the CLI on ``nproc`` ranks; the
+    nproc chip_smoke.py --child <spec>``: the CLI on ``nproc`` ranks (rank
+    r's memory capped at ``memory_fraction[r]`` of the card's); the
     launcher and its ranks are killed at CHILD_TIMEOUT. Returns the
     ranks' records; fails on any non-zero return code."""
     out = WORK / "ranks" / tag
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     spec = out / "spec.json"
-    spec.write_text(json.dumps({"argv": argv, "out": str(out),
-                                "flash_sites": flash_sites}))
+    spec.write_text(json.dumps({
+        "argv": argv, "out": str(out), "flash_sites": flash_sites,
+        "memory_fraction": {str(r): f
+                            for r, f in (memory_fraction or {}).items()}}))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
            "--child", str(spec)]
@@ -2556,6 +2704,7 @@ def _unwrapped_runs(dev, overrides: list, n: int = 2) -> list:
     from ts_asr_whisper_tpu_torch import kernels
     from ts_asr_whisper_tpu_torch.config import load_config
     from ts_asr_whisper_tpu_torch.train import ModelTrainer
+    from ts_asr_whisper_tpu_torch.training.lora import lora_linears
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2565,6 +2714,10 @@ def _unwrapped_runs(dev, overrides: list, n: int = 2) -> list:
     num_prefix = len(mt.container.tokenizer.prefix_tokens) - 1
     records = []
     for i in range(n):
+        # the Trainer adds fresh LoRA adapters (from the seed) to a model
+        # without them
+        for _, m in list(lora_linears(mt.model)):
+            del m.lora_A, m.lora_B, m.lora_scale
         mt.model.load_state_dict(start)
         record = {"logged": []}
         restore = _record_trainer(record)
@@ -2695,7 +2848,134 @@ def phase_dp_train(ctx: dict) -> dict:
         f"micro-batch: preheat {gb['preheat'] / 1e6:.1f} MB, base "
         f"{gb['base'] / 1e9:.3f} GB of fp32 gradients (+ 4 B token count)")
     paths["dicow_v3_train_ddp_gloo_2ranks"] = _summed(recs)
+    ctx["ddp_gloo"] = recs  # phase 26's reference
     return paths
+
+
+def phase_lora_fsdp(ctx: dict) -> dict:
+    """Phase 25 (see the module docstring)."""
+    mc, steps = ctx["per_batch"], LORA_FSDP_STEPS
+
+    def overrides(name):
+        return [*ctx["overrides"](name), "training.use_lora=true",
+                f"training.max_steps={steps}",
+                "training.use_fddt_only_n_steps=0"]
+
+    ref = _unwrapped_runs(ctx["dev"], overrides("lora_unwrapped"),
+                          n=LORA_FSDP_RUNS)
+    spread = _spread(ref)
+    tol = max(DP_LOSS_FACTOR * spread, DP_LOSS_FLOOR)
+    log(f"[lora fsdp] {LORA_FSDP_RUNS} unwrapped LoRA runs: largest relative "
+        f"loss difference of a pair {spread:.3g} -> tolerance {tol:.3g}; ms "
+        f"per update "
+        + " / ".join(f"{r['loop'] * 1e3 / (steps // 2):.0f}" for r in ref)
+        + ", peak " + " / ".join(f"{r['peak']:.1f}" for r in ref) + " GiB")
+    for r in ref:
+        _check_train_rank("lora unwrapped", r, ref[0], tol, mc, steps)
+    # the same split of each micro-batch over 2 ranks under DDP: FSDP2's
+    # reference (each rank's bf16 weight gradients over its 2 rows, which
+    # Adam's first update on B = 0 turns into sign-sized steps, are noise
+    # that no unwrapped pair samples)
+    runs = {}
+    for shard, tag in ((False, "lora_ddp_gloo_2ranks"),
+                       (True, "lora_fsdp_gloo_2ranks")):
+        recs = run_ranks(tag, ["--device", "cuda:0", "--backend", "gloo",
+                               *overrides(tag),
+                               f"training.shard_params={str(shard).lower()}"],
+                         nproc=2, flash_sites=shard)
+        if recs[0]["logged"] != recs[1]["logged"]:
+            raise AssertionError(f"[{tag}] the ranks logged "
+                                 f"{recs[0]['logged']} and "
+                                 f"{recs[1]['logged']}")
+        runs[tag] = recs
+    ddp, fsdp = runs["lora_ddp_gloo_2ranks"], runs["lora_fsdp_gloo_2ranks"]
+    # before the first update: the unwrapped run's forward
+    _check_train_rank("lora_ddp_gloo_2ranks rank 0", ddp[0], ref[0],
+                      math.inf, mc, steps)
+    for rank, rec in enumerate(fsdp):
+        _check_train_rank(f"lora_fsdp_gloo_2ranks rank {rank}", rec, ddp[0],
+                          tol, mc, steps)
+        _check_train_rank(f"lora_fsdp_gloo_2ranks rank {rank} (unwrapped)",
+                          rec, ref[0], math.inf, mc, steps)
+    sums = [r["gathered_checksums"] for r in fsdp]
+    if sums[0] != sums[1]:
+        bad = sum(a != b for a, b in zip(*sums))
+        raise AssertionError(f"[lora fsdp] {bad} checksums of the gathered "
+                             "state differ between the ranks")
+    moved = fsdp[0]["fsdp_bytes"]
+    log(f"[lora fsdp] FSDP2 held against DDP on the same split within the "
+        f"tolerance; the {len(sums[0]) // 2} gathered tensors (adapters and "
+        f"weights) have equal checksums on both ranks; per micro-batch and "
+        f"rank: all-gather {moved['all_gather'] / steps / 1e9:.3f} GB in "
+        f"{moved['all_gather_calls'] / steps:.0f} calls, reduce-scatter "
+        f"{moved['reduce_scatter'] / steps / 1e9:.3f} GB in "
+        f"{moved['reduce_scatter_calls'] / steps:.0f} calls (each rank's "
+        f"whole tensors); ms per update FSDP2 "
+        + " / ".join(f"{r['loop'] * 1e3 / (steps // 2):.0f}" for r in fsdp)
+        + ", DDP " + " / ".join(f"{r['loop'] * 1e3 / (steps // 2):.0f}"
+                                for r in ddp)
+        + "; peak FSDP2 " + " / ".join(f"{r['peak']:.1f}" for r in fsdp)
+        + ", DDP " + " / ".join(f"{r['peak']:.1f}" for r in ddp) + " GiB")
+    return {"dicow_v3_lora_ddp_gloo_2ranks": _summed(ddp),
+            "dicow_v3_lora_fsdp_gloo_2ranks": _summed(fsdp)}
+
+
+def phase_autobatch(ctx: dict) -> dict:
+    """Phase 26 (see the module docstring)."""
+    mc, steps, p21 = ctx["per_batch"], ctx["steps"], ctx["ddp_gloo"]
+    tag = "autobatch_gloo_2ranks"
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    recs = run_ranks(tag, ["--device", "cuda:0", "--backend", "gloo",
+                           *ctx["overrides"]("autobatch"),
+                           "training.gradient_accumulation_steps=1",
+                           "training.auto_find_batch_size=true"],
+                     nproc=2, memory_fraction={1: AUTOBATCH_CAP_GIB / total})
+    for rank, rec in enumerate(recs):
+        cap = (f"capped at {rec['memory_fraction'] * total:.1f} GiB"
+               if rec["memory_fraction"] else "uncapped")
+        log(f"[{tag}] rank {rank} ({cap}) probes: " + "; ".join(
+            f"micro-batch {p['micro_batch']} {p['outcome']} in "
+            f"{p['ms']:.0f} ms, {p['at_start']:.2f} GiB at its start, peak "
+            f"{p['peak']:.2f} GiB (reserved {p['reserved']:.2f}), flash fwd "
+            f"/ bwd "
+            f"{p['launches']['flash_attn_fwd']} / "
+            f"{p['launches']['flash_attn_bwd']}" for p in rec["probes"]))
+    for rank, rec in enumerate(recs):
+        outcomes = [(p["micro_batch"], p["outcome"]) for p in rec["probes"]]
+        first = "OutOfMemoryError" if rank == 1 else "fits"
+        if outcomes != [(4, first), (2, "fits")] or \
+                (rec["micro_batch"], rec["accum"]) != (2, 2):
+            raise AssertionError(
+                f"[{tag}] rank {rank}: probes {outcomes}, trained at micro-"
+                f"batch {rec['micro_batch']}, accumulation {rec['accum']}")
+    if recs[0]["logged"] != recs[1]["logged"]:
+        raise AssertionError(f"[{tag}] the ranks logged {recs[0]['logged']} "
+                             f"and {recs[1]['logged']}")
+    tol = ctx["tol"]
+    for rank, rec in enumerate(recs):
+        # the training loop's launches: the probes' apart
+        loop = dict(rec, launches={
+            k: v - sum(p["launches"][k] for p in rec["probes"])
+            for k, v in rec["launches"].items()})
+        _check_train_rank(f"{tag} rank {rank}", loop, ctx["ref"], tol, mc,
+                          steps)
+    # the design's claim: no micro-batch of the run exceeds the probe
+    if any(r["peak"] > r["probes"][-1]["peak"] for r in recs):
+        raise AssertionError(
+            f"[{tag}] the training loop peaked at "
+            f"{[r['peak'] for r in recs]} GiB, over its probe's "
+            f"{[r['probes'][-1]['peak'] for r in recs]}")
+    diff = _max_rel(recs[0]["logged"], p21[0]["logged"])
+    if diff > tol:
+        raise AssertionError(f"[{tag}] losses {diff:.3g} from phase 21's "
+                             f"(tolerance {tol:.3g})")
+    log(f"[{tag}] both ranks halved together to micro-batch 2, accumulation "
+        f"2 (phase 21's settings) and logged losses within {diff:.3g} of "
+        f"phase 21's (tolerance {tol:.3g}); the training loop's peak "
+        + " / ".join(f"{r['peak']:.2f}" for r in recs) + " GiB under the "
+        "probe's at micro-batch 2, "
+        + " / ".join(f"{r['probes'][-1]['peak']:.2f}" for r in recs))
+    return {"dicow_v3_train_autobatch_gloo_2ranks": _summed(recs)}
 
 
 def _summed(recs: list) -> dict:
@@ -2953,9 +3233,11 @@ def main() -> int:
     ctx = dp_setup(dev, p9)
     paths.update(phase_dp_train(ctx))
     paths.update(phase_tp_train(ctx))
-    shutil.rmtree(ctx.pop("work"), ignore_errors=True)
     paths.update(phase_sharded_eval(dev))
     paths.update(phase_tp_se_dicow(dev))
+    paths.update(phase_lora_fsdp(ctx))
+    paths.update(phase_autobatch(ctx))
+    shutil.rmtree(ctx.pop("work"), ignore_errors=True)
     from ts_asr_whisper_tpu_torch.kernels import KERNEL_SOURCES
 
     csrc = "ts_asr_whisper_tpu_torch/kernels/csrc"

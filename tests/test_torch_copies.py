@@ -52,13 +52,13 @@ JAXPKG = REPO / "ts_asr_whisper_tpu"
 # modules copied unchanged (their text equals the source's once the package
 # names are made the same)
 UNCHANGED_COPIES = (
-    "data/audio.py", "data/manifests.py", "data/stno.py",
+    "data/audio.py", "data/manifests.py", "data/notsofar.py", "data/stno.py",
     "data/collators.py", "data/augmentations.py", "data/tokenizer.py",
     "decoding/generation_config.py", "decoding/token_timestamps.py",
     "eval/postprocess.py", "eval/seglst.py",
     "eval/wer.py", "eval/wer_utils.py", "eval/orc.py", "eval/viz.py",
     "training/dataloader.py", "txt_norm/__init__.py", "txt_norm/nsf.py",
-    "txt_norm/whisper_en.py", "utils/logging_def.py")
+    "txt_norm/whisper_en.py", "utils/deprecated.py", "utils/logging_def.py")
 # the copies' comments and docstrings name the reference by name, not by
 # the absolute path of a checkout of it, and say "caller"/"scoring" where
 # their sources say "driver"

@@ -32,7 +32,12 @@ and writes ``rank<RANK>.json`` into OUTDIR. Modes:
   Trainer's loop replaced by a recorder of each batch this rank receives,
   beside the batches its own loader would have built;
 - ``cli``: the port's CLI (``__main__.main``) with ARGS_JSON's argv, the
-  eval batches each rank collates and the scoring calls counted.
+  eval batches each rank collates and the scoring calls counted;
+- ``autobatch``: fine-tunes through ``ModelTrainer.train``, one after the
+  other in this process, each with ARGS_JSON's overrides and optionally a
+  fault raised in one rank's first memory probe (an out-of-memory error or
+  a ValueError); the micro-batch of every probe, the final micro-batch and
+  accumulation, and the final state dict (``<tag><RANK>.pt``).
 """
 
 import json
@@ -370,14 +375,56 @@ def run_cli(outdir, rank, args):
             "decoded_batches": decoded, "scored": scored}
 
 
+def run_autobatch(outdir, rank, args):
+    import torch
+
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.parallel import dist
+    from ts_asr_whisper_tpu_torch.train import ModelTrainer
+    from ts_asr_whisper_tpu_torch.training.trainer import Trainer
+
+    faults = {"oom": lambda: torch.OutOfMemoryError(
+        "CUDA out of memory. Tried to allocate 2.00 GiB"),
+        "value": lambda: ValueError("bad batch")}
+    probe = Trainer.probe_step
+    out = {}
+    for run in args["runs"]:
+        probed = []
+
+        def probe_step(self, batch):
+            probed.append(self.cfg.training.per_device_train_batch_size)
+            fault = run.get("fault")
+            if fault and fault["rank"] == rank and len(probed) == 1:
+                raise faults[fault["error"]]()
+            return probe(self, batch)
+
+        Trainer.probe_step = probe_step
+        try:
+            cfg = load_config(list(run["overrides"]),
+                              n_devices=dist.world_size())
+            mt = ModelTrainer(cfg, "cpu")
+            mt.train()
+        finally:
+            Trainer.probe_step = probe
+        t = cfg.training
+        torch.save(mt.model.state_dict(),
+                   os.path.join(outdir, f"{run['tag']}{rank}.pt"))
+        out[run["tag"]] = {"probed": probed,
+                           "batch": t.per_device_train_batch_size,
+                           "accum": t.gradient_accumulation_steps}
+    return out
+
+
 MODES = {"primitives": run_primitives, "train": run_train, "cli": run_cli,
          "resume": run_resume, "tp_modules": run_tp_modules,
-         "batches": run_batches}
+         "batches": run_batches, "autobatch": run_autobatch}
 
 
-def spawn(mode, outdir, world, args, timeout=120):
+def spawn(mode, outdir, world, args, timeout=120, check=True):
     """Run WORLD workers of MODE (in the test process); every worker and
-    its children are killed at the timeout. Returns the ranks' results."""
+    its children are killed at the timeout (which raises
+    ``subprocess.TimeoutExpired``). Returns the ranks' results, or with
+    ``check=False`` each rank's (return code, output)."""
     import signal
     import subprocess
     import time
@@ -409,6 +456,8 @@ def spawn(mode, outdir, world, args, timeout=120):
             if p.poll() is None:
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
+    if not check:
+        return [(p.returncode, out.decode()) for p, out in zip(procs, outs)]
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, (
             f"rank {rank} failed (rc={p.returncode}):\n"

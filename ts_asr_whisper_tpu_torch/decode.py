@@ -95,7 +95,9 @@ def check_scope(cfg: Cfg, world: Optional[int] = None) -> None:
     where GSPMD would split a head's columns); and, at a world above 1,
     what runs on one device only. A decode ignores the ``model`` axis: it
     shards its batches over every rank, as the JAX CLI builds its eval
-    mesh from the local devices alone (train.py:171-181)."""
+    mesh from the local devices alone (train.py:171-181).
+    ``auto_find_batch_size`` runs over DDP only (train.py::ModelTrainer.
+    _fit: a probe before the first update, with no collective inside)."""
     t = cfg.training
     world = pdist.world_size() if world is None else world
     shape = check_mesh(t.mesh_shape, t.mesh_axis_names, world)
@@ -115,16 +117,15 @@ def check_scope(cfg: Cfg, world: Optional[int] = None) -> None:
         raise NotImplementedError(
             "encoder pre-training runs on one device: the JAX package gives "
             "it no mesh and no process awareness (pretrain_encoder.py)")
-    if t.auto_find_batch_size and not t.decode_only:
+    if t.auto_find_batch_size and not t.decode_only and (
+            t.shard_params or tp > 1):
         raise NotImplementedError(
-            "training.auto_find_batch_size at a world above 1: an out-of-"
-            "memory error on one rank leaves the others waiting in the "
-            "gradient all-reduce; set per_device_train_batch_size instead")
-    if t.use_lora and t.shard_params and not t.decode_only:
-        raise NotImplementedError(
-            "training.use_lora with training.shard_params: the LoRA merge "
-            "writes W + BA into weights that FSDP2 shards; use "
-            "shard_params=false (DDP)")
+            "training.auto_find_batch_size under FSDP2 (training."
+            "shard_params) or a 'model' axis above 1: the memory probe's "
+            "forward all-gathers parameters or all-reduces activations, and "
+            "an out-of-memory error between two of those collectives leaves "
+            "the other ranks waiting in the next; set "
+            "per_device_train_batch_size instead")
 
 
 def scoring_backend() -> str:

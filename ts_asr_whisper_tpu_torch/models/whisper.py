@@ -35,7 +35,7 @@ from ..ops.attention import plain_sdpa, sdpa
 from ..ops.beam_attention import (ancestry_attention,
                                   ancestry_attention_reference)
 from ..parallel.tensor import copy_to_model, row_parallel_linear
-from ..training.lora import merged_call as lora_merged_call
+from ..training.lora import adapted_weight
 from .config import DiCoWConfig
 
 KVCache = Dict[str, torch.Tensor]
@@ -76,9 +76,10 @@ def _as_bhtd(cache: torch.Tensor, layout: str) -> torch.Tensor:
 
 
 def linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """x @ W^T + b with weights and input cast to the compute dtype."""
+    """x @ W^T + b with weights and input cast to the compute dtype; W
+    merged with the LoRA adapters that ``m`` carries (training/lora.py)."""
     b = m.bias.to(dtype) if m.bias is not None else None
-    return F.linear(x.to(dtype), m.weight.to(dtype), b)
+    return F.linear(x.to(dtype), adapted_weight(m).to(dtype), b)
 
 
 def row_linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
@@ -320,8 +321,8 @@ class WhisperDecoder(nn.Module):
     def forward(self, input_ids: torch.Tensor, encoder_hidden: torch.Tensor,
                 position_offset: int = 0) -> torch.Tensor:
         """Teacher-forced decoder (whisper.py:251-267): (B, T) tokens ->
-        (B, T, D) final hidden. A layer with LoRA adapters runs on its
-        weights merged once here (training/lora.py::merged_call), as the
+        (B, T, D) final hidden. Each projection with LoRA adapters merges
+        them in its own call (``linear``), once per layer forward, as the
         JAX package merges once in the loss (trainer.py:64-68)."""
         dt = self.cfg.compute_dtype
         x = self.embed(input_ids, position_offset)
@@ -329,12 +330,11 @@ class WhisperDecoder(nn.Module):
         mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
         enc = encoder_hidden.to(dt)
         for layer in self.layers:
-            run = lora_merged_call(layer)
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(run, x, enc, dt, mask, use_reentrant=False,
+                x = checkpoint(layer, x, enc, dt, mask, use_reentrant=False,
                                context_fn=remat_context(self.remat))
             else:
-                x = run(x, enc, dt, mask)
+                x = layer(x, enc, dt, mask)
         return self.layer_norm(x)
 
     def lm_logits(self, hidden: torch.Tensor,

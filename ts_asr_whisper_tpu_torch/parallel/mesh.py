@@ -24,11 +24,14 @@ Counterpart of ts_asr_whisper_tpu/parallel/mesh.py:24-108:
   (training/dataloader.py:87-88), and ``model_peer_batches``
   (parallel/tensor.py) hands them to the model group.
 
-FSDP2 units: every encoder and decoder layer, the encoder and the whole
-model. The encoder runs its layers through ``attn_in`` / ``attn_out`` under
-the ``'attn'`` remat policy, and the trainer calls ``encoder.ctc_logits``
-outside the model's ``forward``, so those methods are registered as forward
-methods: each unshards its unit's parameters as a ``forward`` does.
+FSDP2 units: every encoder and decoder layer (with its LoRA adapters),
+the encoder and the whole model. FSDP2 all-gathers one dtype per unit, so a
+decoder layer whose adapters (fp32) and weights (a bf16 ``param_dtype``)
+differ is refused. The encoder runs its layers through ``attn_in`` /
+``attn_out`` under the ``'attn'`` remat policy, and the trainer calls
+``encoder.ctc_logits`` outside the model's ``forward``, so those methods
+are registered as forward methods: each unshards its unit's parameters as
+a ``forward`` does.
 """
 
 from __future__ import annotations
@@ -135,6 +138,13 @@ def wrap_model(model: nn.Module, mesh, shard_params: bool,
         if is_sharded(model):
             return model
         encoder, decoder = model.encoder, model.decoder
+        dtypes = {p.dtype for p in decoder.layers.parameters()}
+        if len(dtypes) > 1:
+            raise NotImplementedError(
+                f"training.shard_params over decoder layers of {len(dtypes)}"
+                f" dtypes {sorted(map(str, dtypes))}: FSDP2 all-gathers one "
+                "dtype per unit, and the LoRA adapters stay fp32 (as the JAX "
+                "package's lora tree); set model.param_dtype=float32")
         for layer in encoder.layers:
             fully_shard(layer, mesh=data)
             register_fsdp_forward_method(layer, "attn_in")
@@ -174,23 +184,44 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of an FSDP2 parameter (a DTensor split on dim 0 over
+    a 1-D mesh as ``torch.chunk`` splits it): each rank's shard padded to
+    the chunk size and gathered by ``all_gather_into_tensor``, the c10d
+    collective of FSDP2's own unsharding (``DTensor.full_tensor``'s
+    functional collective crashes over gloo with CUDA tensors, torch
+    2.11); any other tensor as it is. A collective every rank calls."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    assert tuple(t.placements) == (Shard(0),), t.placements
+    group = t.device_mesh.get_group()
+    world, n = dist.get_world_size(group), t.shape[0]
+    chunk = -(-n // world)
+    local = t.to_local()
+    padded = local.new_zeros((chunk, *t.shape[1:]))
+    padded[:local.shape[0]] = local
+    out = local.new_empty((chunk * world, *t.shape[1:]))
+    dist.all_gather_into_tensor(out, padded, group=group)
+    return out[:n]
+
+
 def full_state_dict(model: nn.Module, to_cpu: bool = True) -> dict:
     """The unwrapped model's state dict with whole tensors, gathered over
     the ``model`` group and unsharded from FSDP2: a collective that every
-    rank calls. With ``to_cpu`` only rank 0 receives the tensors, on the
-    host (the others get {}), else every rank does."""
+    rank calls. With ``to_cpu``, under FSDP2 or tensor parallelism only
+    rank 0 receives the tensors, on the host (the others get {}), else
+    every rank does."""
     group = model_group(model)
     if not is_sharded(model):
         state = unwrap(model).state_dict()
+        if group is None:
+            return state
     else:
-        from torch.distributed.checkpoint.state_dict import (
-            StateDictOptions, get_model_state_dict)
-
-        state = get_model_state_dict(model, options=StateDictOptions(
-            full_state_dict=True, cpu_offload=to_cpu and group is None))
-    if group is None:
-        return state
-    state = gather_state_dict(state, group)
+        state = {k: _whole(v) for k, v in model.state_dict().items()}
+    if group is not None:
+        state = gather_state_dict(state, group)
     if not to_cpu:
         return state
     return ({k: v.detach().cpu() for k, v in state.items()}
@@ -219,4 +250,12 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     world of one)."""
     if pdist.world_size() > 1:
         dist.all_reduce(t, group=group)
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The element-wise maximum of ``t`` over the ranks of ``group``, in
+    place."""
+    if pdist.world_size() > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t

@@ -2,8 +2,9 @@
 re-init) -> train dataset and collator (SE-DiCoW: with enrollments) ->
 Trainer with long-form dev evals, checkpoint and best-model callbacks
 (retried at half the micro-batch on running out of memory with
-``training.auto_find_batch_size``) -> LoRA merge -> HF export -> final test
-eval.
+``training.auto_find_batch_size``; over several ranks the decision is
+taken by every rank together, from a probe before the first update) ->
+LoRA merge -> HF export -> final test eval.
 
 Counterpart of the train branch of ts_asr_whisper_tpu/train.py
 (``ModelTrainer.__init__`` :82-142, ``_fit`` :314-399, ``train`` :401-490).
@@ -25,11 +26,14 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import os
 import tarfile
+import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from .config import Cfg
@@ -39,19 +43,45 @@ from .decode import DecodeRunner, no_tf32
 from .models.containers import WhisperContainer
 from .models.dicow import DiCoW
 from .parallel import dist as pdist
-from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, axis_group, axis_rank,
-                            axis_size, full_state_dict, is_sharded,
-                            load_full_state_dict)
+from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_reduce_max,
+                            axis_group, axis_rank, axis_size, full_state_dict,
+                            is_sharded, load_full_state_dict)
 from .parallel.tensor import model_group, model_peer_batches
 from .training.checkpoints import (export_hf_checkpoint, restore_checkpoint,
                                    save_model_checkpoint)
 from .training.dataloader import DataLoader
 from .training.lora import init_lora, lora_linears, merge_lora, merged
-from .training.trainer import Trainer, TrainState
+from .training.trainer import Trainer, TrainState, to_device
 from .txt_norm import get_text_norm
 from .utils.logging_def import get_logger
 
 logger = get_logger(__name__)
+
+# the status of a rank's memory probe (``ModelTrainer._probe``); the run
+# follows the largest over the ranks
+FITS, OUT_OF_MEMORY, FAILED = 0, 1, 2
+
+
+def _is_oom(e: BaseException) -> bool:
+    return isinstance(e, torch.OutOfMemoryError) or \
+        "out of memory" in str(e).lower()
+
+
+def probe_batch(batch: Dict[str, np.ndarray], width: int
+                ) -> Dict[str, np.ndarray]:
+    """``batch`` with its labels (and case-invariant labels) replaced by
+    ``width`` columns of text tokens, none of them padding, EOS, a
+    timestamp or a task token: the longest labels, decoder input and CTC
+    targets the collator can give a micro-batch of these rows. The ids
+    alternate between 0 and 1, so a CTC path needs one frame a token."""
+    tokens = np.arange(width) % 2
+    out = dict(batch)
+    for key in ("labels", "upp_labels"):
+        if key in batch:
+            lab = np.asarray(batch[key])
+            out[key] = np.broadcast_to(tokens, (lab.shape[0], width)).astype(
+                lab.dtype)
+    return out
 
 
 class ModelTrainer:
@@ -168,14 +198,20 @@ class ModelTrainer:
         ``auto_find_batch_size`` an attempt that runs out of memory is
         retried at half the micro-batch and twice the accumulation (the
         same global batch) on a model rebuilt from its initial or resumed
-        weights (train.py:314-399). Any other error is raised."""
+        weights (train.py:314-399). In one process the retry follows an
+        out-of-memory error at any step. Over several ranks (DDP; FSDP2 and
+        the ``model`` axis are refused by ``check_scope``) every rank
+        probes its memory before the first update and the ranks halve
+        together (``_probe``); an out-of-memory error after the probe
+        raises. Any other error is raised."""
         t = self.cfg.training
+        world = pdist.world_size()
         retry = False
         while True:
             if retry:
                 self._rebuild_model(resume_path)
             local_bs = t.per_device_train_batch_size
-            global_bs = local_bs * pdist.world_size()
+            global_bs = local_bs * world
             spe = len(self.train_dataset) // global_bs or None
             if t.max_steps <= 0:
                 # HF convention: train by epochs; derive the step budget so
@@ -205,13 +241,15 @@ class ModelTrainer:
             build = axis_rank(mesh, MODEL_AXIS) == 0
             batches = model_peer_batches(loader if build else (),
                                          axis_group(mesh, MODEL_AXIS), build)
-            try:
-                return trainer.train(batches)
-            except Exception as e:
-                oom = isinstance(e, torch.OutOfMemoryError) or \
-                    "out of memory" in str(e).lower()
-                if not (t.auto_find_batch_size and oom and local_bs > 1):
-                    raise
+            if t.auto_find_batch_size and world > 1:
+                batches = self._probe(trainer, batches)
+            if batches is not None:
+                try:
+                    return trainer.train(batches)
+                except Exception as e:
+                    if not (t.auto_find_batch_size and world == 1
+                            and _is_oom(e) and local_bs > 1):
+                        raise
             # outside the handler: the traceback no longer holds the
             # failed attempt's tensors
             trainer = loader = batches = None
@@ -221,6 +259,76 @@ class ModelTrainer:
                            "(grad accumulation x2)", local_bs,
                            t.per_device_train_batch_size)
             retry = True
+
+    def _probe(self, trainer: Trainer, batches: Iterable
+               ) -> Optional[Iterable]:
+        """The memory probe of ``auto_find_batch_size`` over several
+        ranks: one decision that every rank takes, with no rank left
+        waiting in a collective.
+
+        Each rank runs ``Trainer.probe_step`` (forward and backward, the
+        gradient sync off, the base phase's trainable set, optimizer state
+        and gradient buckets) on its first micro-batch with the labels made
+        the longest the collator can give (``probe_batch``):
+        generation_max_length rounded up to the collator's multiple, every
+        column a text token.
+        No real micro-batch can exceed it: the rows are as many, the
+        features always 30 s windows (and the enrollments of SE-DiCoW
+        too), and the labels' width, the decoder's length and the CTC
+        targets' length are the only shapes that vary, each at its maximum
+        here. The probe catches any exception; then one MAX all-reduce
+        (on the host) of every rank's status (``FITS``, ``OUT_OF_MEMORY``,
+        ``FAILED``): on ``FITS`` every rank trains on its batches, the
+        first one included (returned); on ``OUT_OF_MEMORY`` every rank
+        halves (None is returned), or raises at micro-batch 1; on
+        ``FAILED`` every rank raises: the failing rank its own error, the
+        others a RuntimeError that names it."""
+        t = self.cfg.training
+        it = iter(batches)
+        first = next(it)
+        mult = self.collator.pad_labels_to_multiple_of or 1
+        width = min(-(-self.collator.max_length // mult) * mult,
+                    self.container.model_config.max_target_positions)
+        width = max(width, np.asarray(first["labels"]).shape[1])
+        error, t0 = None, time.perf_counter()
+        cuda = trainer.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(trainer.device)
+        try:
+            trainer.probe_step(to_device(probe_batch(first, width),
+                                         trainer.device))
+            if cuda:
+                torch.cuda.synchronize(trainer.device)
+        except Exception as e:
+            error = e
+        status = (FITS if error is None
+                  else OUT_OF_MEMORY if _is_oom(error) else FAILED)
+        peak = ""
+        if cuda:
+            gib = torch.cuda.max_memory_allocated(trainer.device) / 2**30
+            peak = f", peak {gib:.2f} GiB"
+        logger.info("auto_find_batch_size probe at per-device batch %d, "
+                    "labels %d wide: %s in %.0f ms%s",
+                    t.per_device_train_batch_size, width,
+                    ("fits", "out of memory", "failed")[status],
+                    (time.perf_counter() - t0) * 1e3, peak)
+        codes = torch.zeros(pdist.world_size(), dtype=torch.int64)
+        codes[pdist.get_rank()] = status
+        codes = all_reduce_max(codes).tolist()
+        decision = max(codes)
+        if decision == FITS:
+            return itertools.chain([first], it)
+        it.close()  # the loader's workers stop
+        ranks = [r for r, c in enumerate(codes) if c == decision]
+        if decision == OUT_OF_MEMORY and t.per_device_train_batch_size > 1:
+            error = None  # frees the failed probe's tensors
+            return None
+        if status == decision:
+            raise error
+        what = ("ran out of memory at per-device batch 1"
+                if decision == OUT_OF_MEMORY else "failed")
+        raise RuntimeError(f"auto_find_batch_size: the memory probe {what} "
+                           f"on rank(s) {ranks}; see their errors")
 
     def train(self) -> Dict[str, float]:
         t = self.cfg.training

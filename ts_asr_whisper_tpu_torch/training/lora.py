@@ -7,24 +7,31 @@ Counterpart of ts_asr_whisper_tpu/training/lora.py (``init_lora``,
 tree and merges it inside the jitted loss. Here each targeted ``nn.Linear``
 carries them as parameters of its own, ``lora_A`` (r, in) and ``lora_B``
 (out, r) in the peft layout (the JAX tree's A (in, r) and B (r, out),
-transposed). The teacher-forced decoder merges W + scale * B A once per
-forward (``merged_call``); a decode runs inside ``merged``, on weights
-merged in place once. A ~ N(0, 1 / r^2) (JAX: normal / r), drawn from a
-seeded ``torch.Generator`` (the numbers differ from ``jax.random``'s;
-``models/convert.py::lora_state_dict_from_jax`` carries a JAX tree across),
-and B = 0, so a fresh adapter changes nothing.
+transposed). An adapted projection merges W + scale * B A inside its own
+call (``adapted_weight``, read by models/whisper.py::linear), once per
+layer forward and again in a checkpointed layer's recompute; a decode runs
+inside ``merged``, on weights merged in place once. A ~ N(0, 1 / r^2)
+(JAX: normal / r), drawn from a seeded ``torch.Generator`` (the numbers
+differ from ``jax.random``'s; ``models/convert.py::
+lora_state_dict_from_jax`` carries a JAX tree across), and B = 0, so a
+fresh adapter changes nothing.
 
 Under tensor parallelism the adapted q / v projections are column-sharded
 and the adapters stay whole on every rank (the JAX ``lora`` leaves are
 replicated and GSPMD shards the merge): a rank adds the rows of
 scale * B A that its shard of W holds (``tp_rows``, set by
 parallel/tensor.py::shard_model_), so A and B receive partial gradients,
-which the trainer sums over the ``model`` group."""
+which the trainer sums over the ``model`` group.
+
+Under FSDP2 the adapters are parameters of their decoder layer's
+``fully_shard`` unit: the merge runs where the unit's parameters are whole
+(all-gathered for the layer's forward), and their gradients are reduce-
+scattered with the layer's."""
 
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Callable, Iterator, Tuple
+from typing import Iterator, Tuple
 
 import torch
 from torch import nn
@@ -66,16 +73,12 @@ def _delta(m: nn.Linear) -> torch.Tensor:
     return (b.float() @ m.lora_A.float()) * m.lora_scale
 
 
-def merged_call(module: nn.Module) -> Callable:
-    """``module`` itself when it holds no adapters; else a function that
-    calls it with each adapted weight replaced by W + scale * B A, merged
-    once here, in the graph (gradients reach W, A and B). A checkpointed
-    call recomputes on the same merged tensors."""
-    weights = {f"{name}.weight": m.weight + _delta(m).to(m.weight.dtype)
-               for name, m in lora_linears(module)}
-    if not weights:
-        return module
-    return lambda *args: torch.func.functional_call(module, weights, args)
+def adapted_weight(m: nn.Linear) -> torch.Tensor:
+    """``m``'s weight, or W + (scale * B A in fp32) cast to W's dtype when
+    ``m`` carries adapters: in the graph, so gradients reach W, A and B."""
+    if "lora_A" not in m._parameters:
+        return m.weight
+    return m.weight + _delta(m).to(m.weight.dtype)
 
 
 @torch.no_grad()

@@ -87,7 +87,8 @@ def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
             mesh=None):
     """Teacher-forced forward and the joint loss (trainer.py:59-82), with
     SE-DiCoW's enrollment features and STNO when the batch carries them.
-    LoRA adapters merge once in the decoder's forward (training/lora.py).
+    LoRA adapters merge in each adapted projection's call
+    (training/lora.py).
     ``model`` may be a DDP / FSDP2 wrapper over the ``data`` axis of
     ``mesh``: the CTC head runs on the wrapped model, in the same backward,
     and the loss and its parts are this data coordinate's shares of the
@@ -279,6 +280,37 @@ class Trainer:
         for p in params:
             p.grad = None
         return parts
+
+    def probe_step(self, batch: Dict[str, torch.Tensor]) -> None:
+        """Forward and backward of one micro-batch through the DDP wrapper
+        with no update and no collective: the gradient sync off
+        (``no_sync``) and the token count local. The memory held is the
+        base phase's, the larger: its trainable set, optimizer state and
+        gradient buckets (in the preheat phase the base optimizer is built
+        for the probe, with a flat buffer of its parameters' size for the
+        base wrapper's buckets, and the preheat optimizer built again after
+        it, as it was before any update). The gradients are dropped. For
+        ``auto_find_batch_size`` over several DDP ranks (train.py)."""
+        preheat = self.state.phase == "preheat"
+        buckets = None
+        try:
+            if preheat:
+                self.tx = None
+                self.tx = self._build_tx(preheat_only=False)
+                buckets = torch.empty(
+                    sum(p.numel() * p.element_size() for p in self.tx.params),
+                    dtype=torch.uint8, device=self.device)
+            with self.wrapped.no_sync():
+                total, _ = loss_fn(self.wrapped, self.model_cfg, batch,
+                                   self.num_prefix_tokens)
+                total.backward()
+        finally:
+            del buckets
+            for p in self.model.parameters():
+                p.grad = None
+            if preheat:
+                self.tx = None
+                self.tx = self._build_tx(preheat_only=True)
 
     # -- main loop -----------------------------------------------------------
     def train(self, train_iter: Iterable[Dict[str, np.ndarray]]) -> TrainState:
