@@ -111,8 +111,7 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
  18. (run after phase 7, on its model) greedy decode of phase 7's first
      window at batch 16 over the exact and the int8 cross-KV: ms per step,
      device ms per step (utils/devicetime.py), cross-KV bytes, peak memory;
- 19. (run after phase 6: device times taken after the training phases
-     came out 10-20x low in one run, cause not found) the device log-mel
+ 19. (run after phase 6) the device log-mel
      (ops/mel.py) against the host featurizer over 16
      windows of 30 s at 128 mels, within tests/test_mel.py's tolerance, ms
      per window of each; the beam step's candidate top-10 over (2, 5 x
@@ -126,7 +125,8 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      two unwrapped runs of this process (10 x their largest relative
      difference, at least 1e-6), the flash forward and backward in every
      encoder layer and the CTC head of every micro-batch; ms per update
-     and peak memory beside phase 9's;
+     (the two launches share the card at once) and peak memory beside
+     phase 9's;
  21. the same fine-tune on two ranks that share the card over gloo (each
      rank on cuda:0, 2 x micro-batch 2 on the rows of the unwrapped runs'
      micro-batches of 4), through the preheat -> base unfreeze: both ranks
@@ -137,7 +137,8 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      per_device_eval_batch_size 4 through the CLI on two ranks sharing the
      card over gloo: rank 0 decodes batches 0 and 2, rank 1 batches 1 and
      3, the flash forward runs in both; the hypotheses and metrics equal
-     this process's decode at batch 4, and only rank 0 writes the outputs.
+     this process's decode at batch 4, and only rank 0 writes the outputs;
+     its ranks are launched beside phase 23's.
      Phases 20-22 read wall time only.
  23. (run after phase 21, on its corpus and unwrapped runs) the fine-tune
      tensor-parallel over a mesh [1, 2] ('data' x 'model') at full turbo
@@ -161,13 +162,21 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      coordinates read different rows, the model
      peers log equal losses, and the global losses lie within
      TP_FORWARD_TOL of an unwrapped run of the same model before the first
-     update and 10 x the spread of 4 unwrapped runs after it; the SCB cross-
+     update and within 10 x the spread of 4 unwrapped runs of a DDP run on
+     two ranks after it (launched beside it: the same split of every
+     micro-batch, whose bf16 weight gradients over 2 rows a rank move the
+     losses further than any unwrapped pair samples; DDP's ranks read the
+     data coordinates' rows, log the same losses, within DP_FORWARD_TOL
+     of the unwrapped run's before the first update, and end with equal
+     checksums); the SCB cross-
      attention's flash forward and backward at 10 local heads, against
      their plain versions on SCB 0's own inputs;
  25. (on phase 20's corpus) the fine-tune with LoRA (training.use_lora=
-     true), 4 micro-batches with no preheat (2 updates), on two ranks
+     true) at full width and LORA_FSDP_LAYERS encoder layers, 4
+     micro-batches with no preheat (2 updates), on two ranks
      sharing the card over gloo at micro-batch 2, with DDP and with FSDP2
-     (training.shard_params=true): each run's ranks log the same losses;
+     (training.shard_params=true), the two launched side by side: each
+     run's ranks log the same losses;
      before the first update both are within DP_FORWARD_TOL of an
      unwrapped LoRA run in this process, and FSDP2's losses stay within 10
      x the largest spread of 4 unwrapped LoRA runs of DDP's on the same
@@ -185,6 +194,23 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      settings), where both probes fit; the ranks log the same losses,
      within the phase-20 tolerance of the unwrapped run and of phase 21's;
      each probe's outcome, time, peak memory and flash launches per rank.
+After phase 26, the device-time gate: the flash forward's device time at
+     (16, 20, 1500, 64) bf16 read again (utils/devicetime.py, the one
+     device-time function of every phase and tool) must lie within
+     DEVICE_TIME_GATE of phase 3's; both traces are printed kernel by
+     kernel, after their lead and without one (a trace loses the device
+     records of its first launches, more of them the older the process).
+ 27. the device tools of ts_asr_whisper_tpu_torch/scripts, each a child
+     process at full turbo width that must exit 0: export_dicow of a turbo
+     checkpoint that this phase saves (run on the CPU beside the next
+     three; the export loads strictly into the port's container and
+     equals the saved model), cuda_kernel_check (all six kernels against
+     their plain versions), probe_psi_gather, probe_train_batch at
+     micro-batches 4 and 16, smoke_decode of the export on phase 7's
+     recordings (scored by the native tcpWER library), and profile_decode
+     at --max-new 64 and with --reorder pallas (every stage with its
+     device ms). Each tool's printed kernel launches join the kernels
+     record under "tool:<name>" (not counted in "launches").
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing here imports jax or the JAX package.
 """
@@ -208,6 +234,12 @@ sys.modules["ts_asr_whisper_tpu"] = None
 
 import torch  # noqa: E402
 
+# the one device-time function of the port (utils/devicetime.py); the
+# probes under scripts/ that import this file call it as device_ms
+from ts_asr_whisper_tpu_torch.utils.devicetime import (  # noqa: E402
+    kernel_trace, measure_device_ms)
+
+device_ms = measure_device_ms
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 TURBO = {"vocab_size": 51866, "num_mel_bins": 128, "d_model": 1280,
@@ -309,13 +341,17 @@ TP_FORWARD_TOL = 1e-4
 # with 4 layers the run-to-run order of dq moves a pair by 8.6e-6 in one
 # call and 1.4e-4 in the next, while the data-parallel split (each data
 # coordinate's weight gradients rounded to bf16 over its 2 rows) moves the
-# losses by up to 5.1e-4 (PERF.md §6)
+# losses by up to 5.1e-4 (PERF.md §6): the TP run is held to a DDP run on
+# the same split after the first update
 TP_SE_LAYERS, TP_SE_SCBS, TP_SE_RUNS = 4, 2, 4
 # phase 25: phase 20's fine-tune with LoRA, cut to 4 micro-batches with no
-# preheat (2 updates, the adapters training from the first); its tolerance
-# from the spread of 4 unwrapped runs, as phase 24's (a pair's spread moved
+# preheat (2 updates, the adapters training from the first) and to
+# LORA_FSDP_LAYERS encoder layers at full width (FSDP2's all-gathers over
+# gloo, 12.6 GB a micro-batch and rank at full depth, took 31-45 s an
+# update: the run's time limit); its tolerance from the spread of 4
+# unwrapped runs of the same model, as phase 24's (a pair's spread moved
 # 20x between two calls, 8.6e-6 to 1.7e-4: PERF.md §6)
-LORA_FSDP_STEPS, LORA_FSDP_RUNS = 4, 4
+LORA_FSDP_STEPS, LORA_FSDP_RUNS, LORA_FSDP_LAYERS = 4, 4, 8
 # phase 26: rank 1's memory cap (GiB; torch.cuda.
 # set_per_process_memory_fraction of the card's), between the memory
 # probe's peak at micro-batch 2 (~23.1 GiB allocated, ~24.2 reserved) and
@@ -324,6 +360,21 @@ LORA_FSDP_STEPS, LORA_FSDP_RUNS = 4, 4
 AUTOBATCH_CAP_GIB = 25.5
 # wall-time limit of one torchrun launch of phases 20-26
 CHILD_TIMEOUT = 420
+# the flash forward's device time after the last training phase against
+# phase 3's, at most this factor apart either way
+DEVICE_TIME_GATE = 1.5
+# phase 27: the tools' wall-time limit each, and profile_decode's stage
+# lines (its JAX script's labels), each with a device reading
+TOOL_TIMEOUT = 600
+DECODE_STAGES = ("mel (batch", "window slice (batch", "encoder (batch",
+                 "greedy loop", "loop no-CTC", "loop +CTC",
+                 "longform greedy e2e [host feats]",
+                 "longform greedy e2e [device feats]")
+
+
+def mark(t_start: float, done: str) -> None:
+    log(f"[time] {time.perf_counter() - t_start:.0f} s since the start, "
+        f"after {done}")
 
 
 def log(msg: str) -> None:
@@ -344,28 +395,6 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
-
-
-def device_ms(fn, reps: int = 20):
-    """Device time per call of ``fn``: the sum of its kernels' times in a
-    torch.profiler trace of ``reps`` calls. Unlike ``median_ms`` it leaves
-    out the host's time to reach the launch, which bounds small kernels.
-    A trace that caught no kernel is taken again; None if none ever does."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / reps
-    return None
 
 
 def fmt_ms(x) -> str:
@@ -460,9 +489,9 @@ def phase_kernel(dev) -> dict:
         if not ok:
             raise AssertionError(f"kernel disagrees at {shape} {dt}")
         if shape == ENC_SHAPE and dt == torch.bfloat16:
-            dev_ms = device_ms(lambda: A.flash_mha_fwd(q, k, v))
+            dev_ms = measure_device_ms(lambda: A.flash_mha_fwd(q, k, v))
             lib_ms = median_ms(lambda: sdpa_fwd(q, k, v))
-            lib_dev_ms = device_ms(lambda: sdpa_fwd(q, k, v))
+            lib_dev_ms = measure_device_ms(lambda: sdpa_fwd(q, k, v))
             nbytes = 4 * q.numel() * q.element_size()  # q, k, v in, out
             main = {"max_abs_err": err, "lse_max_abs_err": lse_err, "ms": ms,
                     "device_ms": dev_ms, "plain_ms": plain_ms,
@@ -528,7 +557,7 @@ def phase_flash_bwd(dev) -> dict:
                 raise AssertionError(f"backward kernel disagrees at T {t} "
                                      f"{dt}")
             if t == BWD_SHAPE[2] and dt == torch.bfloat16:
-                dev_ms = device_ms(lambda: A.flash_mha_bwd(*args))
+                dev_ms = measure_device_ms(lambda: A.flash_mha_bwd(*args))
                 qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
                 lib_out = sdpa_fwd(qr, kr, vr)
 
@@ -537,7 +566,7 @@ def phase_flash_bwd(dev) -> dict:
                                         retain_graph=True)
 
                 lib_ms = median_ms(lib_bwd)
-                lib_dev_ms = device_ms(lib_bwd)
+                lib_dev_ms = measure_device_ms(lib_bwd)
                 # q k v g out and lse in, dq dk dv out
                 nbytes = (8 * q.numel() * q.element_size()
                           + lse.numel() * lse.element_size())
@@ -683,9 +712,9 @@ def phase_ancestry(dev) -> dict:
                 plain_ms = median_ms(
                     lambda: BA.ancestry_attention_reference(*args, pos, BEAMS),
                     reps=20)
-                dev_ms = device_ms(
+                dev_ms = measure_device_ms(
                     lambda: BA.ancestry_attention(*args, pos, BEAMS))
-                plain_dev_ms = device_ms(
+                plain_dev_ms = measure_device_ms(
                     lambda: BA.ancestry_attention_reference(*args, pos, BEAMS))
                 atol, rtol = ANC_TOLS[dt]
                 log(f"[ancestry] Bb {bb} H {h} T {t} pos {pos} "
@@ -711,7 +740,7 @@ def phase_ancestry(dev) -> dict:
             f"launch captured in a CUDA graph, replayed at device pos "
             f"{', '.join(map(str, ANC_REPLAY))}: max_abs_err {replay:.3e}")
         if d == dt:
-            hist_dev_ms = device_ms(
+            hist_dev_ms = measure_device_ms(
                 lambda: BA.ancestry_attention(*args, pos, BEAMS))
             main["beam_history_device_ms"] = hist_dev_ms
             main["graph_replay_max_abs_err"] = replay
@@ -842,8 +871,9 @@ def phase_psi(dev) -> dict:
         plain_ms = median_ms(
             lambda: PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w),
             reps=20)
-        dev_ms = device_ms(lambda: PG.psi_gather_dot(p_vt, audio_idx, ids, w))
-        plain_dev_ms = device_ms(
+        dev_ms = measure_device_ms(
+            lambda: PG.psi_gather_dot(p_vt, audio_idx, ids, w))
+        plain_dev_ms = measure_device_ms(
             lambda: PG.psi_gather_dot_reference(p_vt, audio_idx, ids, w))
         log(f"[psi] P (2, {c['v_dec'] + 1}, {CTC_T}) {str(dt)[6:]}, ids "
             f"{tuple(ids.shape)}, popcount <= {c['popcount']}: sums "
@@ -922,11 +952,11 @@ def phase_reorder(dev) -> dict:
                                 .item())
                 idx = _reorder_idx("repeats", bb, gen)
                 ms = median_ms(lambda: fn(cache, idx), reps=50)
-                dev_ms = device_ms(lambda: fn(cache, idx))
+                dev_ms = measure_device_ms(lambda: fn(cache, idx))
                 plain_ms = median_ms(lambda: ref_fn(cache, idx), reps=50)
                 lib_ms = median_ms(
                     lambda: torch.index_select(cache, dim, idx), reps=50)
-                lib_dev_ms = device_ms(
+                lib_dev_ms = measure_device_ms(
                     lambda: torch.index_select(cache, dim, idx))
                 nbytes = 2 * cache.numel() * cache.element_size() + bb * 4
                 b = bound(0.0, nbytes, dt)
@@ -1882,7 +1912,8 @@ def phase_remat(dev) -> dict:
                   for p, f in zip(trainable, ref))
         den = sum(f.to(dev).float().square().sum() for f in ref)
         r["grad_rel"] = float((num / den).sqrt())
-        r["device_ms"] = device_ms(lambda: run(policy, batches[:1]), reps=2)
+        r["device_ms"] = measure_device_ms(lambda: run(policy, batches[:1]),
+                                           reps=2)
         out[key] = r
     hook.remove()
     with torch.no_grad():
@@ -2010,7 +2041,6 @@ def phase_int8_cross_kv(runner, dev) -> None:
     from ts_asr_whisper_tpu_torch.models.whisper import quantize_cross_kv
     from ts_asr_whisper_tpu_torch.training.dataloader import eval_batches
     from ts_asr_whisper_tpu_torch.utils.device import force_execution
-    from ts_asr_whisper_tpu_torch.utils.devicetime import measure_device_ms
 
     steps = 125
     model = runner.container.model
@@ -2048,7 +2078,7 @@ def phase_int8_cross_kv(runner, dev) -> None:
         force_execution(out)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        dev_ms = measure_device_ms(run)
+        dev_ms = measure_device_ms(run, reps=1, warmup=0)
         res[mode] = out.sequences
         log(f"[int8_cross_kv] {mode}: {wall * 1e3 / steps:.2f} ms/step, "
             f"device {fmt_ms(None if dev_ms is None else dev_ms / steps)} "
@@ -2320,7 +2350,6 @@ def phase_mel_topk(dev) -> None:
     from ts_asr_whisper_tpu_torch.ops.mel import log_mel_spectrogram
     from ts_asr_whisper_tpu_torch.ops.topk import topk_lax, topk_thresholded
     from ts_asr_whisper_tpu_torch.utils.device import force_execution
-    from ts_asr_whisper_tpu_torch.utils.devicetime import measure_device_ms
 
     n_win = 16
     rng = np.random.default_rng(3)
@@ -2660,6 +2689,13 @@ def run_ranks(tag: str, argv: list, nproc: int, flash_sites: bool = False,
     r's memory capped at ``memory_fraction[r]`` of the card's); the
     launcher and its ranks are killed at CHILD_TIMEOUT. Returns the
     ranks' records; fails on any non-zero return code."""
+    return run_ranks_together(dict(
+        tag=tag, argv=argv, nproc=nproc, flash_sites=flash_sites,
+        memory_fraction=memory_fraction))[0]
+
+
+def _launch(tag: str, argv: list, nproc: int, flash_sites: bool = False,
+            memory_fraction: dict = None) -> dict:
     out = WORK / "ranks" / tag
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
@@ -2671,30 +2707,83 @@ def run_ranks(tag: str, argv: list, nproc: int, flash_sites: bool = False,
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
            "--child", str(spec)]
-    t0, launched = time.perf_counter(), time.time()
-    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+    # the output goes to a file: a pipe that no one reads while another
+    # launch is awaited would fill and stop the ranks
+    with open(out / "log.txt", "w") as f:
+        t0, launched = time.perf_counter(), time.time()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return {"tag": tag, "nproc": nproc, "out": out, "proc": proc, "t0": t0,
+            "launched": launched}
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    """Stops a launcher and its ranks: SIGTERM first, which torchrun passes
+    on to its ranks (each in a session of its own, out of reach of the
+    launcher's group), then SIGKILL to what is left of the group."""
+    os.killpg(proc.pid, signal.SIGTERM)
     try:
-        text = proc.communicate(timeout=CHILD_TIMEOUT)[0]
+        proc.wait(timeout=60)
     except subprocess.TimeoutExpired:
-        text = f"timed out after {CHILD_TIMEOUT} s"
+        pass
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def run_ranks_together(*jobs: dict) -> list:
+    """``run_ranks`` for several launches that share the card at once
+    (each job is run_ranks' keyword arguments): all start together, each
+    is killed at CHILD_TIMEOUT, and the first that fails kills the
+    others. Returns each launch's records, in the order of ``jobs``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = []
+    try:
+        for job in jobs:
+            started.append(_launch(**job))
+        deadline = time.perf_counter() + CHILD_TIMEOUT
+        while time.perf_counter() < deadline:
+            for j in started:
+                if "wall" not in j and j["proc"].poll() is not None:
+                    j["wall"] = time.perf_counter() - j["t0"]
+            if all("wall" in j for j in started) or any(
+                    j["proc"].returncode for j in started):
+                break
+            time.sleep(0.2)
     finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-    (out / "log.txt").write_text(text)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"[{tag}] torchrun rc={proc.returncode}:\n"
-                             f"{text[-6000:]}")
-    recs = [json.loads((out / f"rank{r}.json").read_text())
-            for r in range(nproc)]
-    log(f"[{tag}] {nproc} rank(s) through torchrun, wall {wall:.1f} s: "
-        f"{recs[0]['entered'] - launched:.1f} s to start (torchrun, "
-        f"python, imports), {recs[0]['wall']:.1f} s in the CLI, "
-        f"{launched + wall - recs[0]['returned']:.1f} s to exit")
-    return recs
+        for j in started:
+            if j["proc"].poll() is None:
+                _stop(j["proc"])
+                j["killed"] = True
+    # a launch that failed on its own first, then one killed at the limit
+    for j in sorted(started, key=lambda j: bool(j.get("killed"))):
+        if j["proc"].returncode != 0:
+            text = (j["out"] / "log.txt").read_text()
+            if j.get("killed"):
+                text += (f"\nkilled: timed out after {CHILD_TIMEOUT} s"
+                         if time.perf_counter() >= deadline else
+                         "\nkilled: another launch failed")
+            raise AssertionError(f"[{j['tag']}] torchrun rc="
+                                 f"{j['proc'].returncode}:\n{text[-6000:]}")
+    beside = (f" beside {', '.join(j['tag'] for j in started[1:])}"
+              if len(started) > 1 else "")
+    results = []
+    for i, j in enumerate(started):
+        tag = j["tag"]
+        wall, launched = j["wall"], j["launched"]
+        recs = [json.loads((j["out"] / f"rank{r}.json").read_text())
+                for r in range(j["nproc"])]
+        log(f"[{tag}] {j['nproc']} rank(s) through torchrun"
+            f"{beside if i == 0 else ''}, wall {wall:.1f} s: "
+            f"{recs[0]['entered'] - launched:.1f} s to start (torchrun, "
+            f"python, imports), {recs[0]['wall']:.1f} s in the CLI, "
+            f"{launched + wall - recs[0]['returned']:.1f} s to exit")
+        results.append(recs)
+    return results
 
 
 def _unwrapped_runs(dev, overrides: list, n: int = 2) -> list:
@@ -2822,10 +2911,13 @@ def phase_dp_train(ctx: dict) -> dict:
                                              "steps"))
     overrides = ctx["overrides"]
     paths = {}
-    for shard, tag in ((False, "ddp_nccl"), (True, "fsdp_nccl")):
-        rec, = run_ranks(tag, ["--device", "cuda", *overrides(tag),
-                               f"training.shard_params={str(shard).lower()}"],
-                         nproc=1)
+    # the two launches share the card at once (their ms per update so too)
+    tags = ("ddp_nccl", "fsdp_nccl")
+    runs = run_ranks_together(*(dict(
+        tag=tag, nproc=1, argv=["--device", "cuda", *overrides(tag),
+                                f"training.shard_params={str(shard).lower()}"])
+        for shard, tag in zip((False, True), tags)))
+    for tag, (rec,) in zip(tags, runs):
         _check_train_rank(tag, rec, ref, tol, mc, steps)
         paths[f"dicow_v3_train_{tag}"] = rec["launches"]
 
@@ -2854,11 +2946,16 @@ def phase_dp_train(ctx: dict) -> dict:
 
 def phase_lora_fsdp(ctx: dict) -> dict:
     """Phase 25 (see the module docstring)."""
-    mc, steps = ctx["per_batch"], LORA_FSDP_STEPS
+    steps = LORA_FSDP_STEPS
+    mc = LORA_FSDP_LAYERS + 1  # + the CTC head's self-attention
+    model_dir = ctx["work"] / "model_lora"
+    model_dir.mkdir()
+    (model_dir / "config.json").write_text(json.dumps(
+        {**TURBO, "encoder_layers": LORA_FSDP_LAYERS}))
 
     def overrides(name):
-        return [*ctx["overrides"](name), "training.use_lora=true",
-                f"training.max_steps={steps}",
+        return [*ctx["overrides"](name), f"model.whisper_model={model_dir}",
+                "training.use_lora=true", f"training.max_steps={steps}",
                 "training.use_fddt_only_n_steps=0"]
 
     ref = _unwrapped_runs(ctx["dev"], overrides("lora_unwrapped"),
@@ -2876,18 +2973,18 @@ def phase_lora_fsdp(ctx: dict) -> dict:
     # reference (each rank's bf16 weight gradients over its 2 rows, which
     # Adam's first update on B = 0 turns into sign-sized steps, are noise
     # that no unwrapped pair samples)
-    runs = {}
-    for shard, tag in ((False, "lora_ddp_gloo_2ranks"),
-                       (True, "lora_fsdp_gloo_2ranks")):
-        recs = run_ranks(tag, ["--device", "cuda:0", "--backend", "gloo",
-                               *overrides(tag),
-                               f"training.shard_params={str(shard).lower()}"],
-                         nproc=2, flash_sites=shard)
+    tags = ("lora_ddp_gloo_2ranks", "lora_fsdp_gloo_2ranks")
+    # the two launches share the card at once (their ms per update so too)
+    runs = dict(zip(tags, run_ranks_together(*(dict(
+        tag=tag, nproc=2, flash_sites=shard, argv=[
+            "--device", "cuda:0", "--backend", "gloo", *overrides(tag),
+            f"training.shard_params={str(shard).lower()}"])
+        for shard, tag in zip((False, True), tags)))))
+    for tag, recs in runs.items():
         if recs[0]["logged"] != recs[1]["logged"]:
             raise AssertionError(f"[{tag}] the ranks logged "
                                  f"{recs[0]['logged']} and "
                                  f"{recs[1]['logged']}")
-        runs[tag] = recs
     ddp, fsdp = runs["lora_ddp_gloo_2ranks"], runs["lora_fsdp_gloo_2ranks"]
     # before the first update: the unwrapped run's forward
     _check_train_rank("lora_ddp_gloo_2ranks rank 0", ddp[0], ref[0],
@@ -3010,8 +3107,9 @@ def _tp_rank_line(tag: str, recs: list, steps: int) -> str:
             f"peak {peak} GiB")
 
 
-def phase_tp_train(ctx: dict) -> dict:
-    """Phase 23 (see the module docstring)."""
+def phase_tp_train(ctx: dict, beside: dict) -> dict:
+    """Phase 23 (see the module docstring), launched beside phase 22's
+    ranks (``beside``: phase_sharded_eval's job and check)."""
     from safetensors.torch import load_file
 
     from ts_asr_whisper_tpu_torch.config import load_config
@@ -3020,10 +3118,13 @@ def phase_tp_train(ctx: dict) -> dict:
     ref, tol, mc, steps = (ctx[k] for k in ("ref", "tol", "per_batch",
                                              "steps"))
     tag = "tp_1x2"
-    recs = run_ranks(tag, [
-        "--device", "cuda:0", "--backend", "gloo", *ctx["overrides"]("tp"),
-        "training.mesh_shape=[1,2]", "training.mesh_axis_names=[data,model]"],
-        nproc=2, flash_sites=True)
+    recs, sharded = run_ranks_together(
+        dict(tag=tag, nproc=2, flash_sites=True, argv=[
+            "--device", "cuda:0", "--backend", "gloo",
+            *ctx["overrides"]("tp"), "training.mesh_shape=[1,2]",
+            "training.mesh_axis_names=[data,model]"]),
+        beside["job"])
+    paths = beside["check"](sharded)
     if recs[0]["logged"] != recs[1]["logged"]:
         raise AssertionError(f"[{tag}] the ranks logged {recs[0]['logged']} "
                              f"and {recs[1]['logged']}")
@@ -3056,7 +3157,7 @@ def phase_tp_train(ctx: dict) -> dict:
         f"{n_whole} replicated trainable tensors with equal checksums; the "
         f"gathered export loads strictly into one process's container")
     log(_tp_rank_line(tag, recs, steps))
-    return {"dicow_v3_train_tp_1x2": _summed(recs)}
+    return {**paths, "dicow_v3_train_tp_1x2": _summed(recs)}
 
 
 def phase_tp_se_dicow(dev) -> dict:
@@ -3112,40 +3213,67 @@ def phase_tp_se_dicow(dev) -> dict:
         _check_train_rank("tp se_dicow unwrapped", r, ref[0], tol, per_batch,
                           steps)
     tag = "tp_2x2"
-    recs = run_ranks(tag, [
-        "--device", "cuda:0", "--backend", "gloo", *overrides("tp"),
-        "training.mesh_shape=[2,2]", "training.mesh_axis_names=[data,model]"],
-        nproc=4, flash_sites=True)
-    # rank = d * tp + m: ranks 0, 1 hold data coordinate 0, ranks 2, 3 hold 1
-    if not (recs[0]["batches"] == recs[1]["batches"]
-            and recs[2]["batches"] == recs[3]["batches"]) or any(
+    # the reference after the first update: DDP over 2 ranks, the same
+    # split of every micro-batch as the data coordinates' (each rank's bf16
+    # weight gradients over its 2 rows move the losses, by up to 5.1e-4,
+    # which no unwrapped pair samples), launched beside the TP run
+    recs, ddp = run_ranks_together(
+        dict(tag=tag, nproc=4, flash_sites=True, argv=[
+            "--device", "cuda:0", "--backend", "gloo", *overrides("tp"),
+            "training.mesh_shape=[2,2]",
+            "training.mesh_axis_names=[data,model]"]),
+        dict(tag="ddp_2ranks", nproc=2, argv=[
+            "--device", "cuda:0", "--backend", "gloo", *overrides("ddp")]))
+    if ddp[0]["logged"] != ddp[1]["logged"]:
+        raise AssertionError(f"[tp se_dicow ddp] the ranks logged "
+                             f"{ddp[0]['logged']} and {ddp[1]['logged']}")
+    # before the first update: the unwrapped run's forward
+    for rank, rec in enumerate(ddp):
+        _check_train_rank(f"tp se_dicow ddp rank {rank} (unwrapped)", rec,
+                          ref[0], math.inf, per_batch, steps)
+    n_ddp = _equal_replicated("tp se_dicow ddp", ddp)
+    # rank = d * tp + m: ranks 0, 1 hold data coordinate 0, ranks 2, 3 hold
+    # 1, and DDP's rank d reads the rows of data coordinate d
+    if not (recs[0]["batches"] == recs[1]["batches"] == ddp[0]["batches"]
+            and recs[2]["batches"] == recs[3]["batches"] == ddp[1][
+                "batches"]) or any(
                 a == b for a, b in zip(recs[0]["batches"],
                                        recs[2]["batches"])):
-        raise AssertionError(f"[{tag}] batches {[r['batches'] for r in recs]}")
+        raise AssertionError(f"[{tag}] batches {[r['batches'] for r in recs]}"
+                             f", DDP's {[r['batches'] for r in ddp]}")
     for rank, rec in enumerate(recs):
         if rec["logged"] != recs[0]["logged"]:
             raise AssertionError(f"[{tag}] rank {rank} logged "
                                  f"{rec['logged']}, rank 0 "
                                  f"{recs[0]['logged']}")
-        _check_train_rank(f"{tag} rank {rank}", rec, ref[0], tol, per_batch,
+        _check_train_rank(f"{tag} rank {rank}", rec, ddp[0], tol, per_batch,
                           steps, fwd_tol=TP_FORWARD_TOL)
+        _check_train_rank(f"{tag} rank {rank} (unwrapped)", rec, ref[0],
+                          math.inf, per_batch, steps, fwd_tol=TP_FORWARD_TOL)
         site = rec["flash_sites"]["scb0"]
         if site["heads"] != TURBO["encoder_attention_heads"] // 2:
             raise AssertionError(f"[{tag}] rank {rank}: SCB 0 at "
                                  f"{site['heads']} heads")
     n_whole = _equal_replicated(tag, recs)
-    log(f"[{tag}] data coordinates read different rows, the model peers "
-        f"the same; every rank logged the global losses "
+    log(f"[{tag}] data coordinates read different rows (DDP's ranks the "
+        f"same), the model peers the same; held against DDP on the same "
+        f"split within the tolerance after the first update; DDP "
+        f"{_max_rel(ddp[0]['logged'], ref[0]['logged']):.3g} from the "
+        f"unwrapped run in all ({n_ddp} trainable tensors with equal "
+        f"checksums on both ranks); every rank logged the global losses "
         f"{[round(r['loss'], 6) for r in recs[0]['logged']]}; {n_whole} "
         f"replicated trainable tensors with equal checksums; SCB 0 at "
         f"{recs[0]['flash_sites']['scb0']['shape']}")
     log(_tp_rank_line(tag, recs, steps))
     shutil.rmtree(work, ignore_errors=True)
-    return {"se_dicow_train_tp_2x2": _summed(recs)}
+    return {"se_dicow_train_tp_2x2": _summed(recs),
+            "se_dicow_train_ddp_2ranks": _summed(ddp)}
 
 
 def phase_sharded_eval(dev) -> dict:
-    """Phase 22 (see the module docstring)."""
+    """Phase 22 (see the module docstring): the single-process decode, then
+    the launch ``job`` and the ``check`` of its records, which phase 23
+    runs beside its own launch."""
     gc.collect()
     torch.cuda.empty_cache()
     overrides = ["+decode=dicow_v3_greedy",
@@ -3156,14 +3284,19 @@ def phase_sharded_eval(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     work = WORK / "greedy_b4"
-    name = "eval_cutset"
     out = work / "exp_ranks"
     argv = ["--device", "cuda:0", "--backend", "gloo", *overrides,
             f"model.whisper_model={work / 'model'}",
             f"data.eval_cutsets=[{manifest}]",
             "training.generation_max_length=128",
             "training.save_visualizations=false", f"training.output_dir={out}"]
-    recs = run_ranks("greedy_sharded_2ranks", argv, nproc=2)
+    return {"job": dict(tag="greedy_sharded_2ranks", argv=argv, nproc=2),
+            "check": lambda recs: _check_sharded_eval(recs, single, work)}
+
+
+def _check_sharded_eval(recs: list, single: dict, work: Path) -> dict:
+    name = "eval_cutset"
+    out = work / "exp_ranks"
     ref_metrics = single["metrics"]
     for rank, rec in enumerate(recs):
         if rec["decoded"] != [rank, rank + 2]:
@@ -3203,17 +3336,238 @@ def phase_sharded_eval(dev) -> dict:
             "dicow_v3_greedy_sharded_2ranks": _summed(recs)}
 
 
+# -- the device-time gate and phase 27: the tools as child processes
+
+
+def flash_trace_line(tag: str, trace: dict, reps: int) -> str:
+    """What a trace of ``reps`` flash forwards caught, kernel by kernel:
+    records, device ms per record, records of zero duration; and the
+    launches whose device records it lost."""
+    rows = ", ".join(f"{name.split('(')[0][-40:]} {n} x "
+                     f"{us / max(n, 1) / 1e3:.4f} ms ({zero} zero)"
+                     for name, (n, us, zero) in trace["kernels"].items())
+    return (f"[devicetime] {tag}: {reps} calls, {rows or 'no records'}; "
+            f"{trace['launches']} launches, {trace['unmatched']} without "
+            f"their device record ({trace['lost_in_lead']} lost in the "
+            f"lead); {trace['us'] / 1e3 / reps:.4f} ms a call as caught; "
+            f"streams {trace['streams']}, devices {trace['devices']}, a "
+            f"profiler already on: {trace['profiler_was_on']}")
+
+
+def flash_main_reading(dev, reps: int = 20) -> tuple:
+    """The flash forward at ENC_SHAPE bf16: its device time per call
+    (utils/devicetime.py), a trace of ``reps`` calls after the reading's
+    lead of 256 absorbing launches (what it sums), and a trace with no
+    lead (what a sum of a whole trace catches)."""
+    from ts_asr_whisper_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(ENC_SHAPE, device=dev, generator=gen) * s
+               for s in (0.125, 1.0, 1.0))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+
+    def fn():
+        return A.flash_mha_fwd(q, k, v)
+
+    return (measure_device_ms(fn, reps=reps), kernel_trace(fn, reps, 256),
+            kernel_trace(fn, reps))
+
+
+def phase_devicetime_gate(dev, early: tuple, process_s: float) -> dict:
+    """After the last training phase of this process: the flash forward's
+    device time at the main shape again, against phase 3's reading; fails
+    when the two are more than DEVICE_TIME_GATE apart. Prints what each
+    trace caught, with a lead and without one."""
+    late = flash_main_reading(dev)
+    ms0, ms1 = early[0], late[0]
+    log(f"[devicetime] flash forward {ENC_SHAPE} bf16 device time: phase 3 "
+        f"{fmt_ms(ms0)}, after the last training phase {fmt_ms(ms1)} "
+        f"(process {process_s:.0f} s old; gate {DEVICE_TIME_GATE}x)")
+    for when, (_, led, bare) in (("phase 3", early), ("after training",
+                                                      late)):
+        log(flash_trace_line(f"{when}, after a lead of 256", led, 20))
+        log(flash_trace_line(f"{when}, no lead", bare, 20))
+    if ms0 is None or ms1 is None or \
+            max(ms0 / ms1, ms1 / ms0) > DEVICE_TIME_GATE:
+        raise AssertionError(f"devicetime: {fmt_ms(ms0)} in phase 3 against "
+                             f"{fmt_ms(ms1)} after training")
+    return {"device_ms_phase3": ms0, "device_ms_after_training": ms1}
+
+
+def start_tool(module: str, args: list) -> tuple:
+    """``python -m ts_asr_whisper_tpu_torch.scripts.<module> <args>`` in a
+    child process of its own session; returns (process, command, start)."""
+    cmd = [sys.executable, "-m", f"ts_asr_whisper_tpu_torch.scripts.{module}",
+           *map(str, args)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             start_new_session=True),
+            cmd, time.perf_counter())
+
+
+def finish_tool(tag: str, started: tuple) -> dict:
+    """Wait for a tool started by ``start_tool`` (killed at TOOL_TIMEOUT)
+    and put its output in this log. Fails on a non-zero exit. Returns its
+    stdout, stderr and the kernel launches it printed (all 0 when it
+    printed none)."""
+    from ts_asr_whisper_tpu_torch import kernels
+
+    proc, cmd, t0 = started
+    try:
+        out, err = proc.communicate(timeout=TOOL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        err += f"\ntimed out after {TOOL_TIMEOUT} s"
+    (WORK / "tools").mkdir(parents=True, exist_ok=True)
+    (WORK / "tools" / f"{tag}.log").write_text(out + "\n" + err)
+    for line in out.splitlines():
+        log(f"[{tag}] {line}")
+    log(f"[{tag}] exit {proc.returncode}, {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] {' '.join(cmd)} exited "
+                             f"{proc.returncode}:\n{err[-4000:]}")
+    launches = dict.fromkeys(kernels.launch_counts, 0)
+    for line in out.splitlines():
+        if line.startswith("kernel launches: "):
+            launches = json.loads(line[len("kernel launches: "):])
+    return {"out": out, "err": err, "launches": launches}
+
+
+def run_tool(tag: str, module: str, args: list) -> dict:
+    return finish_tool(tag, start_tool(module, args))
+
+
+def phase_tools(dev) -> dict:
+    """Phase 27: the device tools of ts_asr_whisper_tpu_torch/scripts as
+    child processes at full turbo width, each of which must exit 0:
+    export_dicow of a turbo checkpoint written here with
+    save_model_checkpoint (on the CPU, beside the next three: the export
+    loads strictly into the port's container and every tensor equals the
+    saved model's), cuda_kernel_check (all six kernels matched),
+    probe_psi_gather, probe_train_batch at micro-batches 4 and 16,
+    smoke_decode of the export on phase 7's recordings (scored by the
+    native tcpWER library), and profile_decode at --max-new 64 and with
+    --reorder pallas (every stage with its device ms). Returns each tool's
+    kernel launches."""
+    import re
+
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
+    from ts_asr_whisper_tpu_torch.models.containers import WhisperContainer
+    from ts_asr_whisper_tpu_torch.training.checkpoints import \
+        save_model_checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = WORK / "tools"
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+    paths = {}
+
+    # a turbo checkpoint, exported by the tool while the next ones run
+    model_dir = _turbo_dir(work)
+    overrides = [f"model.whisper_model={model_dir}", "model.ctc_weight=0.3"]
+    container = WhisperContainer(load_config(overrides), dev, seed=11)
+    saved = {k: v.detach().cpu().clone()
+             for k, v in container.model.state_dict().items()}
+    save_model_checkpoint(str(work / "ckpt"), container.model, step=7)
+    del container
+    gc.collect()
+    torch.cuda.empty_cache()
+    export = work / "export"
+    exporting = start_tool("export_dicow", ["--ckpt", work / "ckpt", "--out",
+                                            export, *overrides])
+
+    res = run_tool("cuda_kernel_check", "cuda_kernel_check", [])
+    if "OK: all six CUDA kernels match" not in res["out"] or not all(
+            res["launches"][k] for k in KERNELS):
+        raise AssertionError(f"cuda_kernel_check: {res['launches']}")
+    paths["tool:cuda_kernel_check"] = res["launches"]
+
+    res = run_tool("probe_psi_gather", "probe_psi_gather", [])
+    if not res["launches"]["psi_gather_dot"]:
+        raise AssertionError("probe_psi_gather launched no psi kernel")
+    paths["tool:probe_psi_gather"] = res["launches"]
+
+    res = run_tool("probe_train_batch", "probe_train_batch",
+                   ["--batches", 4, 16])
+    recs = [json.loads(x) for x in res["out"].splitlines()
+            if x.startswith("{")]
+    if [r["batch"] for r in recs] != [4, 16] or not recs[0]["ok"] or \
+            not res["launches"]["flash_attn_bwd"]:
+        raise AssertionError(f"probe_train_batch: {recs}")
+    paths["tool:probe_train_batch"] = res["launches"]
+
+    res = finish_tool("export_dicow", exporting)
+    if f"Exported step 7 to {export}" not in res["out"]:
+        raise AssertionError("export_dicow: no export line")
+    paths["tool:export_dicow"] = res["launches"]
+    # a strict load: the export holds exactly the container's tensors
+    loaded = WhisperContainer(load_config([f"model.whisper_model={export}",
+                                           "model.ctc_weight=0.3"]), dev)
+    got = loaded.model.state_dict()
+    bad = [k for k, v in saved.items()
+           if not torch.equal(got[k].detach().cpu(), v)]
+    log(f"[export_dicow] loaded strictly into the port's container, "
+        f"{len(saved) - len(bad)} of {len(saved)} tensors equal to the "
+        "saved model's")
+    if bad:
+        raise AssertionError(f"export_dicow: {bad[:5]} differ")
+    del loaded, got, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    manifest = write_corpus(work / "corpus", [60.0] * 8, seed=0)
+    res = run_tool("smoke_decode", "smoke_decode",
+                   ["--model-dir", export, "--cutset", manifest,
+                    "--output-dir", work / "smoke", "--batch", 16,
+                    "--max-length", 128, "--dtype", "bfloat16"])
+    final = json.loads(res["out"].splitlines()[-1])
+    tcp = [v for k, v in final.items() if k.endswith("tcp_wer")]
+    if not tcp or not all(map(math.isfinite, tcp)) \
+            or "scoring=native" not in res["err"] \
+            or not res["launches"]["flash_attn_fwd"]:
+        raise AssertionError(f"smoke_decode: {final}, scoring line "
+                             f"{'scoring=native' in res['err']}")
+    log(f"[smoke_decode] tcpWER {tcp[0]} scored by the native library")
+    paths["tool:smoke_decode"] = res["launches"]
+
+    for tag, args in (("profile_decode", []),
+                      ("profile_decode_reorder_pallas",
+                       ["--reorder", "pallas"])):
+        res = run_tool(tag, "profile_decode", ["--max-new", 64, *args])
+        lines = res["out"].splitlines()
+        for stage in DECODE_STAGES:
+            hit = [x for x in lines if stage in x]
+            if not hit or not re.search(r"device +[\d.]+ ms", hit[0]):
+                raise AssertionError(f"{tag}: no device reading for "
+                                     f"{stage!r}")
+        want = ("kv_reorder_bhtd" if args else "ancestry_attn",
+                "flash_attn_fwd", "psi_gather_dot")
+        if not all(res["launches"][k] for k in want):
+            raise AssertionError(f"{tag}: launches {res['launches']}")
+        paths[f"tool:{tag}"] = res["launches"]
+    log(f"[tools] phase 27: {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     kind = phase_card()
     dev = torch.device("cuda", 0)
     phase_build()
     k_flash = phase_kernel(dev)
+    early = (k_flash["device_ms"], *flash_main_reading(dev)[1:])
     k_bwd = phase_flash_bwd(dev)
     k_anc = phase_ancestry(dev)
     k_psi = phase_psi(dev)
     k_reorder = phase_reorder(dev)
     phase_encoder(dev)
     phase_mel_topk(dev)
+    mark(t_start, "phases 1-6 and 19")
     paths = {"dicow_v3_greedy": phase_decode(dev),
              "dicow_v3_beam_joint": phase_beam_decode(dev)["launches"],
              "dicow_v3_train": (p9 := phase_train(dev))["launches"],
@@ -3230,14 +3584,22 @@ def main() -> int:
     paths["dicow_v3_beam_joint_fallback_int8"] = phase_fallback_int8(
         dev)["launches"]
     paths["dicow_v3_greedy_token_ts"] = phase_token_ts(dev)["launches"]
+    mark(t_start, "phases 7-18")
     ctx = dp_setup(dev, p9)
     paths.update(phase_dp_train(ctx))
-    paths.update(phase_tp_train(ctx))
-    paths.update(phase_sharded_eval(dev))
+    mark(t_start, "phases 20-21")
+    paths.update(phase_tp_train(ctx, phase_sharded_eval(dev)))
+    mark(t_start, "phases 22-23")
     paths.update(phase_tp_se_dicow(dev))
+    mark(t_start, "phase 24")
     paths.update(phase_lora_fsdp(ctx))
+    mark(t_start, "phase 25")
     paths.update(phase_autobatch(ctx))
+    mark(t_start, "phase 26")
     shutil.rmtree(ctx.pop("work"), ignore_errors=True)
+    phase_devicetime_gate(dev, early, time.perf_counter() - t_start)
+    paths.update(phase_tools(dev))
+    mark(t_start, "phase 27")
     from ts_asr_whisper_tpu_torch.kernels import KERNEL_SOURCES
 
     csrc = "ts_asr_whisper_tpu_torch/kernels/csrc"
@@ -3253,7 +3615,10 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": f"{csrc}/{KERNEL_SOURCES[name]}.cu",
         "replaces": replaces[name],
-        "launches": sum(launches[name] for launches in paths.values()),
+        # the tools' launches (phase 27) are listed by path, not counted:
+        # cuda_kernel_check's are comparisons with the plain versions
+        "launches": sum(launches[name] for path, launches in paths.items()
+                        if not path.startswith("tool:")),
         "launches_by_path": {path: launches[name]
                              for path, launches in paths.items()},
         **timing[name]} for name in KERNELS]}

@@ -260,6 +260,14 @@ class ModelTrainer:
                            t.per_device_train_batch_size)
             retry = True
 
+    def probe_width(self) -> int:
+        """The widest labels the collator can give: generation_max_length
+        rounded up to the collator's multiple, at most the decoder's
+        positions."""
+        mult = self.collator.pad_labels_to_multiple_of or 1
+        return min(-(-self.collator.max_length // mult) * mult,
+                   self.container.model_config.max_target_positions)
+
     def _probe(self, trainer: Trainer, batches: Iterable
                ) -> Optional[Iterable]:
         """The memory probe of ``auto_find_batch_size`` over several
@@ -286,10 +294,7 @@ class ModelTrainer:
         t = self.cfg.training
         it = iter(batches)
         first = next(it)
-        mult = self.collator.pad_labels_to_multiple_of or 1
-        width = min(-(-self.collator.max_length // mult) * mult,
-                    self.container.model_config.max_target_positions)
-        width = max(width, np.asarray(first["labels"]).shape[1])
+        width = max(self.probe_width(), np.asarray(first["labels"]).shape[1])
         error, t0 = None, time.perf_counter()
         cuda = trainer.device.type == "cuda"
         if cuda:

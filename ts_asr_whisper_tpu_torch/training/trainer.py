@@ -37,6 +37,7 @@ every rank but fed by each rank's rows of the merge, summed.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Optional
@@ -282,25 +283,30 @@ class Trainer:
         return parts
 
     def probe_step(self, batch: Dict[str, torch.Tensor]) -> None:
-        """Forward and backward of one micro-batch through the DDP wrapper
-        with no update and no collective: the gradient sync off
+        """Forward and backward of one micro-batch through the wrapper
+        with no update and no collective: under DDP the gradient sync off
         (``no_sync``) and the token count local. The memory held is the
-        base phase's, the larger: its trainable set, optimizer state and
-        gradient buckets (in the preheat phase the base optimizer is built
-        for the probe, with a flat buffer of its parameters' size for the
-        base wrapper's buckets, and the preheat optimizer built again after
-        it, as it was before any update). The gradients are dropped. For
-        ``auto_find_batch_size`` over several DDP ranks (train.py)."""
+        base phase's, the larger: its trainable set, optimizer state and,
+        under DDP, gradient buckets (in the preheat phase the base
+        optimizer is built for the probe, with a flat buffer of its
+        parameters' size for the base wrapper's buckets, and the preheat
+        optimizer built again after it, as it was before any update). The
+        gradients are dropped. For ``auto_find_batch_size`` over several
+        DDP ranks (train.py) and the micro-batch ceiling of one card
+        (scripts/probe_train_batch.py)."""
         preheat = self.state.phase == "preheat"
+        ddp = hasattr(self.wrapped, "no_sync")
         buckets = None
         try:
             if preheat:
                 self.tx = None
                 self.tx = self._build_tx(preheat_only=False)
-                buckets = torch.empty(
-                    sum(p.numel() * p.element_size() for p in self.tx.params),
-                    dtype=torch.uint8, device=self.device)
-            with self.wrapped.no_sync():
+                if ddp:
+                    buckets = torch.empty(
+                        sum(p.numel() * p.element_size()
+                            for p in self.tx.params),
+                        dtype=torch.uint8, device=self.device)
+            with self.wrapped.no_sync() if ddp else contextlib.nullcontext():
                 total, _ = loss_fn(self.wrapped, self.model_cfg, batch,
                                    self.num_prefix_tokens)
                 total.backward()
