@@ -118,21 +118,30 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      51866), thresholded against the stable sort, equal and timed.
  20. the dicow_v3 fine-tune of phase 9 (its corpus, recipe and micro-batches
      of 4, with the augmentations off: they draw from unseeded global
-     generators) through the CLI under torchrun, one rank over NCCL,
+     generators) at DP_LAYERS encoder layers, as phases 21-23, 25, 26 and
+     28's [2] launch, through the CLI under torchrun, one rank over NCCL,
      once with DDP and once with FSDP2 (training.shard_params=true):
      the losses of the 2 micro-batches before the first update within
      1e-5 of an unwrapped run's, the later ones within the tolerance set by
      two unwrapped runs of this process (10 x their largest relative
      difference, at least 1e-6), the flash forward and backward in every
      encoder layer and the CTC head of every micro-batch; ms per update
-     (the two launches share the card at once) and peak memory beside
-     phase 9's;
- 21. the same fine-tune on two ranks that share the card over gloo (each
+     (the two launches share the card at once, and phase 21's) and peak
+     memory;
+21. the same fine-tune on two ranks that share the card over gloo (each
      rank on cuda:0, 2 x micro-batch 2 on the rows of the unwrapped runs'
      micro-batches of 4), through the preheat -> base unfreeze: both ranks
-     log the same losses, within the same tolerance of the unwrapped run,
-     and end with the same checksums of every trainable parameter; the
-     all-reduce bytes per micro-batch;
+     log the same losses and end with the same checksums of every
+     trainable parameter; the losses are held to DP_SPLIT_RUNS runs in
+     this process that split each micro-batch of 4 as the two ranks do
+     (each block of 2 rows its own forward and backward, the gradients
+     summed in fp32), within 1e-5 before the first update and 10 x the
+     larger spread of those runs and of the unwrapped pair in all (each
+     rank's bf16 gradients over its own rows move the losses from the
+     unwrapped run's by more than a pair of unwrapped runs samples), and
+     nearer those runs than the unwrapped run, whose forward they match
+     within 1e-5 before the first update; the all-reduce bytes per
+     micro-batch;
  22. rank-sharded long-form eval: dicow_v3_greedy on phase 7's recordings at
      per_device_eval_batch_size 4 through the CLI on two ranks sharing the
      card over gloo: rank 0 decodes batches 0 and 2, rank 1 batches 1 and
@@ -142,7 +151,7 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      Phases 20-22 read wall time only.
  23. (run after phase 21, on its corpus and unwrapped runs) the fine-tune
      tensor-parallel over a mesh [1, 2] ('data' x 'model') at full turbo
-     width and depth: two ranks share the card over gloo through torchrun
+     width: two ranks share the card over gloo through torchrun
      and the CLI, each holds 10 of the 20 heads of every attention and
      half of every MLP, and both read phase 9's micro-batches of 4: both
      ranks log bit-identical losses and gradient norms, within
@@ -172,7 +181,7 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      attention's flash forward and backward at 10 local heads, against
      their plain versions on SCB 0's own inputs;
  25. (on phase 20's corpus) the fine-tune with LoRA (training.use_lora=
-     true) at full width and LORA_FSDP_LAYERS encoder layers, 4
+     true) at full width and DP_LAYERS encoder layers, 4
      micro-batches with no preheat (2 updates), on two ranks
      sharing the card over gloo at micro-batch 2, with DDP and with FSDP2
      (training.shard_params=true), the two launched side by side: each
@@ -186,30 +195,52 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      micro-batch, and against their plain versions on layer 0's own inputs
      under FSDP2; the FSDP2 all-gather and reduce-scatter bytes and calls
      per micro-batch, ms per update and peak memory per rank;
- 26. phase 21's fine-tune with training.auto_find_batch_size=true, started
-     at micro-batch 4 and accumulation 1 on two ranks over gloo, rank 1's
-     memory capped at AUTOBATCH_CAP_GIB: rank 1's memory probe
-     runs out of memory at micro-batch 4, rank 0's fits, and both ranks
-     halve together to micro-batch 2 and accumulation 2 (phase 21's
-     settings), where both probes fit; the ranks log the same losses,
-     within the phase-20 tolerance of the unwrapped run and of phase 21's;
-     each probe's outcome, time, peak memory and flash launches per rank.
-After phase 26, the device-time gate: the flash forward's device time at
+ 26. (launched beside phase 25's pair) phase 21's fine-tune with
+     training.auto_find_batch_size=true, started at micro-batch 4 and
+     accumulation 1 on two DDP ranks over gloo, rank 1's memory capped at
+     AUTOBATCH_CAP_GIB: rank 1's memory probe runs out of memory at
+     micro-batch 4, rank 0's fits, and both ranks halve together to
+     micro-batch 2 and accumulation 2 (phase 21's settings), where both
+     probes fit; the ranks log the same finite losses, held as phase
+     21's are and within the same tolerance of phase 21's, the flash forward
+     and backward in every encoder layer and the CTC head of every
+     micro-batch, and the loop peaks under the probe; each probe's
+     outcome, time, peak memory and flash launches per rank, the memory
+     allocated before the first attempt and after the rebuild (as
+     phase 28);
+ 28. auto_find_batch_size under FSDP2 (training.shard_params=true), two
+     launches over gloo side by side, each from micro-batch 4 and
+     accumulation 1 over AUTOBATCH_SHARDED_STEPS micro-batches (one base
+     update after the halving): dicow_v3 on a mesh [2] at DP_LAYERS
+     encoder layers, rank 1 capped, and on a mesh [2, 2] (FSDP2 over
+     'data' x TP over 'model', 4 ranks) at 4 encoder layers, rank 3
+     capped (AUTOBATCH_SHARDED). The probe runs the wrapped forward and
+     backward with every collective replaced by an allocation of its size
+     (parallel/mesh.py::local_collectives): each capped rank's probe runs
+     out of memory at 4, the others fit, every rank halves to 2 and 2 and
+     fits; the ranks log the same finite losses; every rank's model comes
+     back after the rebuild to the memory it held when the first attempt
+     started (within REBUILD_SLACK_GIB); the training loop peaks under
+     the probe at 2; the flash forward and backward in every encoder layer
+     and the CTC head of every micro-batch; each probe's ms, peak and
+     flash launches per rank.
+After phase 28, the device-time gate: the flash forward's device time at
      (16, 20, 1500, 64) bf16 read again (utils/devicetime.py, the one
      device-time function of every phase and tool) must lie within
      DEVICE_TIME_GATE of phase 3's; both traces are printed kernel by
      kernel, after their lead and without one (a trace loses the device
      records of its first launches, more of them the older the process).
  27. the device tools of ts_asr_whisper_tpu_torch/scripts, each a child
-     process at full turbo width that must exit 0: export_dicow of a turbo
-     checkpoint that this phase saves (run on the CPU beside the next
-     three; the export loads strictly into the port's container and
-     equals the saved model), cuda_kernel_check (all six kernels against
-     their plain versions), probe_psi_gather, probe_train_batch at
-     micro-batches 4 and 16, smoke_decode of the export on phase 7's
-     recordings (scored by the native tcpWER library), and profile_decode
-     at --max-new 64 and with --reorder pallas (every stage with its
-     device ms). Each tool's printed kernel launches join the kernels
+     process at full turbo width that must exit 0: export_dicow of a
+     checkpoint of the turbo width at DP_LAYERS encoder layers,
+     saved before phase 28 (run on the CPU beside phase 28 and
+     the next three tools; the export loads strictly into the port's
+     container and equals the saved model), cuda_kernel_check (all six
+     kernels against their plain versions), probe_psi_gather --quick,
+     probe_train_batch at micro-batches 4 and 8, smoke_decode of the
+     export on phase 7's recordings (scored by the native tcpWER library),
+     and profile_decode at --max-new 32 and with --reorder pallas (every
+     stage with its device ms). Each tool's printed kernel launches join the kernels
      record under "tool:<name>" (not counted in "launches").
 The line before the last is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing here imports jax or the JAX package.
@@ -330,6 +361,12 @@ NO_AUG = ("aug.stno_gaussian_noise_prob=0.0",
 # weight gradients in another order), at least DP_LOSS_FLOOR
 DP_FORWARD_TOL = 1e-5
 DP_LOSS_FACTOR, DP_LOSS_FLOOR = 10.0, 1e-6
+# phases 21 and 26: runs in this process with each micro-batch split as two
+# data-parallel ranks split it, the reference of those phases; their pairs
+# and the unwrapped pair sample the tolerance. At DP_LAYERS that tolerance
+# has read above the split's own effect (2.70e-4 against 2.26e-4: PERF.md
+# §6), so a rank must also be nearer these runs than the unwrapped run
+DP_SPLIT_RUNS = 3
 # phases 23-24, before the first update: the row-parallel projections add
 # their partial products (formed and all-reduced in fp32) in another order
 # than one GEMM, so a rare bf16 output rounds the other way; after it the
@@ -344,21 +381,45 @@ TP_FORWARD_TOL = 1e-4
 # losses by up to 5.1e-4 (PERF.md §6): the TP run is held to a DDP run on
 # the same split after the first update
 TP_SE_LAYERS, TP_SE_SCBS, TP_SE_RUNS = 4, 2, 4
+# phases 20-23, 25, 26 and 28's [2] launch run the turbo width at DP_LAYERS
+# encoder layers: at full depth FSDP2's all-gathers over gloo (12.6 GB a
+# micro-batch and rank) took 31-45 s an update, and every launch's export
+# (3.2 GB) counted against the machine's bound on disk writes, which a run
+# crossed (PERF.md §6)
+DP_LAYERS = 8
 # phase 25: phase 20's fine-tune with LoRA, cut to 4 micro-batches with no
-# preheat (2 updates, the adapters training from the first) and to
-# LORA_FSDP_LAYERS encoder layers at full width (FSDP2's all-gathers over
-# gloo, 12.6 GB a micro-batch and rank at full depth, took 31-45 s an
-# update: the run's time limit); its tolerance from the spread of 4
-# unwrapped runs of the same model, as phase 24's (a pair's spread moved
-# 20x between two calls, 8.6e-6 to 1.7e-4: PERF.md §6)
-LORA_FSDP_STEPS, LORA_FSDP_RUNS, LORA_FSDP_LAYERS = 4, 4, 8
+# preheat (2 updates, the adapters training from the first); its
+# tolerance from the spread of 4 unwrapped runs of the same model, as
+# phase 24's (a pair's spread moved 20x between two calls, 8.6e-6 to
+# 1.7e-4: PERF.md §6)
+LORA_FSDP_STEPS, LORA_FSDP_RUNS = 4, 4
 # phase 26: rank 1's memory cap (GiB; torch.cuda.
 # set_per_process_memory_fraction of the card's), between the memory
-# probe's peak at micro-batch 2 (~23.1 GiB allocated, ~24.2 reserved) and
-# at 4 (~27.0 allocated) on a rank of two DDP ranks sharing the card, with
-# labels 448 wide: the phase prints both
-AUTOBATCH_CAP_GIB = 25.5
-# wall-time limit of one torchrun launch of phases 20-26
+# probe's peak at micro-batch 2 (8.65 GiB allocated, 9.35 reserved) and at
+# 4 (11.69 allocated) on a rank of two DDP ranks sharing the card, at
+# DP_LAYERS encoder layers with labels 448 wide (PERF.md §6): the
+# phase prints both
+AUTOBATCH_CAP_GIB = 10.5
+# phase 28: auto_find_batch_size under FSDP2 on ranks sharing the card over
+# gloo, from micro-batch 4: (tag, encoder layers at full width, mesh, the
+# capped rank, its cap in GiB). Each cap lies between that rank's memory
+# probe at micro-batch 2 (its reserved peak, above the allocated one) and
+# at 4 (its allocated peak), which the phase prints; uncapped on the card
+# (PERF.md §6): [2] 6.26 GiB allocated, 8.19 reserved at 2, 8.99
+# allocated at 4; [2, 2] 5.43 and 7.26 at 2, 9.02 at 4
+AUTOBATCH_SHARDED = (
+    ("dicow_v3_train_autobatch_fsdp_gloo_2ranks", DP_LAYERS, (2,), 1,
+     8.6),
+    ("dicow_v3_train_autobatch_fsdp_tp_2x2", TP_SE_LAYERS, (2, 2), 3, 8.1))
+# 2 micro-batches at (2, 2) after the halving: one base update (4 steps,
+# a preheat update and a base one, took 86 s of the run's 1,000)
+AUTOBATCH_SHARDED_STEPS = 2
+# the memory a rank allocates after the model's rebuild against when the
+# first attempt started: the failed attempt's shards, optimizer state and
+# activations must be gone; what the first attempt's kernels leave cached
+# (cuBLAS workspaces) may remain
+REBUILD_SLACK_GIB = 0.25
+# wall-time limit of one torchrun launch of phases 20-26 and 28
 CHILD_TIMEOUT = 420
 # the flash forward's device time after the last training phase against
 # phase 3's, at most this factor apart either way
@@ -2400,7 +2461,8 @@ def phase_mel_topk(dev) -> None:
                     for n, (ms, d) in res.items()))
 
 
-# -- phases 20-26: data and tensor parallelism through the CLI under torchrun
+# -- phases 20-26 and 28: data and tensor parallelism through the CLI under
+# torchrun
 
 
 def _checksums(tensors) -> list:
@@ -2426,14 +2488,20 @@ def _record_trainer(record: dict):
     micro-batch and accumulation it trained at, a checksum of every
     trainable parameter (``_checksums``: this rank's shard under FSDP2 or
     tensor parallelism) and which of them are TP slices, and under FSDP2
-    the checksums of the gathered whole state; returns the function that
-    restores it."""
+    the checksums of the gathered whole state, and the memory allocated
+    when ``ModelTrainer._fit`` starts and after each rebuild of its model;
+    returns the function that restores it."""
     import hashlib
 
     import torch.distributed as tdist
 
+    from torch.distributed.fsdp import FSDPModule
+
     from ts_asr_whisper_tpu_torch import kernels
-    from ts_asr_whisper_tpu_torch.parallel.mesh import (full_state_dict,
+    from ts_asr_whisper_tpu_torch import train as train_mod
+    from ts_asr_whisper_tpu_torch.parallel import tensor as tp_mod
+    from ts_asr_whisper_tpu_torch.parallel.mesh import (_fsdp_param_groups,
+                                                        full_state_dict,
                                                         is_sharded, local)
     from ts_asr_whisper_tpu_torch.parallel.tensor import model_group, tp_dim
     from ts_asr_whisper_tpu_torch.training import trainer as trainer_mod
@@ -2441,6 +2509,8 @@ def _record_trainer(record: dict):
     loop = trainer_mod.Trainer.train
     unfreeze = trainer_mod.Trainer._maybe_unfreeze
     probe = trainer_mod.Trainer.probe_step
+    fit = train_mod.ModelTrainer._fit
+    rebuild = train_mod.ModelTrainer._rebuild_model
     # FSDP2's collectives, under each name this torch has (the newer
     # all_gather_single / reduce_scatter_single, the older names, which may
     # call them: only the outermost call counts)
@@ -2476,6 +2546,19 @@ def _record_trainer(record: dict):
 
     for n in names:
         setattr(tdist, n, counted(n))
+
+    def allocated_gib() -> float:
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() / 2**30
+
+    def watched_fit(self, *args, **kwargs):
+        record["allocated"] = {"fit": allocated_gib(), "rebuilt": []}
+        return fit(self, *args, **kwargs)
+
+    def watched_rebuild(self, *args, **kwargs):
+        rebuild(self, *args, **kwargs)
+        record["allocated"]["rebuilt"].append(allocated_gib())
+
     def probe_step(self, batch):
         entry = {"micro_batch": self.cfg.training.per_device_train_batch_size,
                  "outcome": "fits"}
@@ -2496,7 +2579,14 @@ def _record_trainer(record: dict):
                 peak=torch.cuda.max_memory_allocated() / 2**30,
                 reserved=torch.cuda.max_memory_reserved() / 2**30,
                 launches={k: v - before[k]
-                          for k, v in kernels.launch_counts.items()})
+                          for k, v in kernels.launch_counts.items()},
+                # what the probe leaves: FSDP2's comms, the TP switch
+                comms_after=sorted({
+                    type(c).__name__ for m in self.model.modules()
+                    if isinstance(m, FSDPModule)
+                    for g in _fsdp_param_groups(m)
+                    for c in (g._all_gather_comm, g._reduce_scatter_comm)}),
+                local_only_after=tp_mod.local_only["on"])
             record["probes"].append(entry)
 
     def grad_bytes(trainer):
@@ -2557,20 +2647,24 @@ def _record_trainer(record: dict):
     trainer_mod.Trainer.train = train
     trainer_mod.Trainer._maybe_unfreeze = watched_unfreeze
     trainer_mod.Trainer.probe_step = probe_step
+    train_mod.ModelTrainer._fit = watched_fit
+    train_mod.ModelTrainer._rebuild_model = watched_rebuild
 
     def restore():
         trainer_mod.Trainer.train = loop
         trainer_mod.Trainer._maybe_unfreeze = unfreeze
         trainer_mod.Trainer.probe_step = probe
+        train_mod.ModelTrainer._fit = fit
+        train_mod.ModelTrainer._rebuild_model = rebuild
         for n, fn in collectives.items():
             setattr(tdist, n, fn)
     return restore
 
 
 def child(spec_path: str) -> int:
-    """One rank of phases 20-26, started by torchrun: the CLI's main with
-    the spec's argv, the launch counts and the TP all-reduce bytes set to
-    0 just before and read just after, the eval batches this rank collates
+    """One rank of phases 20-26 and 28, started by torchrun: the CLI's main
+    with the spec's argv, the launch counts and the TP all-reduce bytes set
+    to 0 just before and read just after, the eval batches this rank collates
     and its encoder calls counted; with the spec's ``flash_sites``, the
     q, k, v of the first encoder layer's self-attention and of the first
     SCB's cross-attention are kept as the flash forward receives them in
@@ -2682,18 +2776,6 @@ def child(spec_path: str) -> int:
     return 0
 
 
-def run_ranks(tag: str, argv: list, nproc: int, flash_sites: bool = False,
-              memory_fraction: dict = None) -> list:
-    """``python -m torch.distributed.run --standalone --nproc-per-node
-    nproc chip_smoke.py --child <spec>``: the CLI on ``nproc`` ranks (rank
-    r's memory capped at ``memory_fraction[r]`` of the card's); the
-    launcher and its ranks are killed at CHILD_TIMEOUT. Returns the
-    ranks' records; fails on any non-zero return code."""
-    return run_ranks_together(dict(
-        tag=tag, argv=argv, nproc=nproc, flash_sites=flash_sites,
-        memory_fraction=memory_fraction))[0]
-
-
 def _launch(tag: str, argv: list, nproc: int, flash_sites: bool = False,
             memory_fraction: dict = None) -> dict:
     out = WORK / "ranks" / tag
@@ -2735,10 +2817,13 @@ def _stop(proc: subprocess.Popen) -> None:
 
 
 def run_ranks_together(*jobs: dict) -> list:
-    """``run_ranks`` for several launches that share the card at once
-    (each job is run_ranks' keyword arguments): all start together, each
-    is killed at CHILD_TIMEOUT, and the first that fails kills the
-    others. Returns each launch's records, in the order of ``jobs``."""
+    """Launches that share the card at once, each ``python -m
+    torch.distributed.run --standalone --nproc-per-node nproc chip_smoke.py
+    --child <spec>``: the CLI on ``nproc`` ranks (each job is ``_launch``'s
+    keyword arguments; rank r's memory capped at ``memory_fraction[r]`` of
+    the card's). All start together, each is killed at CHILD_TIMEOUT, and
+    the first that fails kills the others; any non-zero return code
+    fails. Returns each launch's records, in the order of ``jobs``."""
     gc.collect()
     torch.cuda.empty_cache()
     started = []
@@ -2786,13 +2871,54 @@ def run_ranks_together(*jobs: dict) -> list:
     return results
 
 
-def _unwrapped_runs(dev, overrides: list, n: int = 2) -> list:
+def _split_loss(n: int, multiple: int):
+    """The training step's ``loss_fn`` as ``n`` data-parallel ranks take it,
+    in one process: the micro-batch cut into ``n`` blocks of rows, as the
+    DataLoader gives them to the ranks, each block's labels cut to the
+    width that the collator gives those rows alone (their longest, rounded
+    up to ``multiple``), each block's loss ``loss_fn``'s share of the whole
+    micro-batch's (the global token count; ``n`` blocks).
+    The backward of every block but the last runs here, so that each
+    block's gradients are formed apart and then summed in fp32, as DDP
+    sums the ranks'; the step's own backward adds the last block's.
+    Returns the loss, the earlier blocks' detached, and the parts summed
+    over the blocks, as the ranks log them."""
+    from ts_asr_whisper_tpu_torch.training.trainer import loss_fn
+
+    def split(model, model_cfg, batch, num_prefix_tokens, mesh=None):
+        assert mesh is None
+        n_tokens = (batch["labels"] != -100).sum().float().clamp_min(1.0)
+        rows = batch["labels"].shape[0] // n
+        total, parts = 0.0, {}
+        for i in range(n):
+            block = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            longest = int((block["labels"] != -100).sum(1).max())
+            width = -(-longest // multiple) * multiple
+            for key in ("labels", "upp_labels"):
+                if key in block:
+                    block[key] = block[key][:, :width]
+            t, p = loss_fn(model, model_cfg, block, num_prefix_tokens,
+                           n_tokens=n_tokens, world=n)
+            if i < n - 1:
+                t.backward()
+                t = t.detach()
+            total = total + t
+            parts = {k: parts.get(k, 0.0) + v.detach() for k, v in p.items()}
+        return total, parts
+    return split
+
+
+def _unwrapped_runs(dev, overrides: list, n: int = 2, split: int = 1
+                    ) -> list:
     """``n`` runs of the fine-tune's training loop in this process,
     unwrapped, from the same initial weights (ModelTrainer's, no export):
-    the records of ``_record_trainer`` with the launch counts of each."""
+    the records of ``_record_trainer`` with the launch counts of each.
+    With ``split`` > 1 each micro-batch is taken as that many data-
+    parallel ranks take it (``_split_loss``)."""
     from ts_asr_whisper_tpu_torch import kernels
     from ts_asr_whisper_tpu_torch.config import load_config
     from ts_asr_whisper_tpu_torch.train import ModelTrainer
+    from ts_asr_whisper_tpu_torch.training import trainer as trainer_mod
     from ts_asr_whisper_tpu_torch.training.lora import lora_linears
 
     gc.collect()
@@ -2810,14 +2936,20 @@ def _unwrapped_runs(dev, overrides: list, n: int = 2) -> list:
         mt.model.load_state_dict(start)
         record = {"logged": []}
         restore = _record_trainer(record)
+        loss_fn = trainer_mod.loss_fn
+        if split > 1:
+            trainer_mod.loss_fn = _split_loss(
+                split, mt.collator.pad_labels_to_multiple_of or 1)
         for name in kernels.launch_counts:
             kernels.launch_counts[name] = 0
         try:
             mt._fit(num_prefix, 0, None, None, None, None)
         finally:
             restore()
+            trainer_mod.loss_fn = loss_fn
         record["launches"] = dict(kernels.launch_counts)
-        log(f"[unwrapped {i + 1}] losses "
+        what = f"split over {split}" if split > 1 else "unwrapped"
+        log(f"[{what} {i + 1}] losses "
             f"{[round(r['loss'], 6) for r in record['logged']]}")
         records.append(record)
     del mt, start
@@ -2841,7 +2973,8 @@ def _max_rel(a: list, b: list, key: str = "loss") -> float:
 
 def _check_train_rank(tag: str, rec: dict, ref: dict, tol: float,
                       per_batch: int, steps: int,
-                      fwd_tol: float = DP_FORWARD_TOL) -> None:
+                      fwd_tol: float = DP_FORWARD_TOL,
+                      ref_name: str = "the unwrapped run's") -> None:
     diff = _max_rel(rec["logged"], ref["logged"])
     # accumulation 2: the first update follows micro-batch 2
     fwd = _max_rel(rec["logged"][:2], ref["logged"][:2])
@@ -2857,7 +2990,7 @@ def _check_train_rank(tag: str, rec: dict, ref: dict, tol: float,
             math.isfinite(r["loss"]) for r in rec["logged"]):
         raise AssertionError(
             f"[{tag}] losses {[r['loss'] for r in rec['logged']]} vs "
-            f"unwrapped {[r['loss'] for r in ref['logged']]}: relative "
+            f"{ref_name} {[r['loss'] for r in ref['logged']]}: relative "
             f"difference {fwd:.3g} before the first update (tolerance "
             f"{fwd_tol:.3g}), {diff:.3g} in all (tolerance {tol:.3g})")
     if got != (want, want):
@@ -2865,43 +2998,107 @@ def _check_train_rank(tag: str, rec: dict, ref: dict, tol: float,
                              f"{want} ({per_batch} x {steps} micro-batches)")
     parts = (f", CLI set-up {rec['setup']:.1f} s, export {rec['after']:.1f} s"
              if "setup" in rec else "")
-    log(f"[{tag}] losses within {fwd:.3g} of the unwrapped run's before "
-        f"the first update, {diff:.3g} in all (tolerance {tol:.3g}); "
+    log(f"[{tag}] losses within {fwd:.3g} of {ref_name} before the first "
+        f"update (tolerance {fwd_tol:.3g}), {diff:.3g} in all (tolerance "
+        f"{tol:.3g}); "
         f"flash fwd / bwd {got[0]} / {got[1]}; "
         f"training loop {rec['loop']:.2f} s, "
         f"{rec['loop'] * 1e3 / (steps // 2):.0f} ms per update, peak "
         f"{rec['peak']:.1f} GiB{parts}")
 
 
-def dp_setup(dev, p9: dict = None) -> dict:
-    """Phase 20's corpus (phase 9's), model dir and two unwrapped runs of
-    the fine-tune in this process: the reference and the loss tolerance of
-    phases 20, 21 and 23."""
+def _check_split_rank(tag: str, rec: dict, ctx: dict) -> None:
+    """A rank of two DDP ranks at micro-batch 2 (phases 21 and 26) against
+    ``dp_setup``'s runs split as its ranks split each micro-batch: within
+    ctx["split_tol"] in all and DP_FORWARD_TOL before the first update, and
+    within DP_FORWARD_TOL of the unwrapped run before it. That tolerance
+    may lie above the split's own effect on the losses (the split runs
+    against the unwrapped run), so the rank must also be nearer the split
+    runs than the unwrapped run."""
+    mc, steps = ctx["per_batch"], ctx["steps"]
+    _check_train_rank(tag, rec, ctx["split_ref"], ctx["split_tol"], mc,
+                      steps, ref_name="the split runs'")
+    _check_train_rank(f"{tag} (unwrapped)", rec, ctx["ref"], math.inf, mc,
+                      steps)
+    split = _max_rel(rec["logged"], ctx["split_ref"]["logged"])
+    unsplit = _max_rel(rec["logged"], ctx["ref"]["logged"])
+    if split >= unsplit:
+        raise AssertionError(
+            f"[{tag}] losses {split:.3g} from the split runs', {unsplit:.3g} "
+            f"from the unwrapped run's: the rank does not follow its split")
+    log(f"[{tag}] {split:.3g} from the split runs, {unsplit:.3g} from the "
+        f"unwrapped run; the tolerance {ctx['split_tol']:.3g} beside the "
+        f"split's effect {ctx['split_effect']:.3g}")
+
+
+def dp_context(dev) -> dict:
+    """Phase 20's corpus (phase 9's), model dir (turbo width at DP_LAYERS
+    encoder layers) and fine-tune overrides, which phases 20-26 and 28
+    share."""
     from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
 
     work = WORK / "dp_train"
     shutil.rmtree(work, ignore_errors=True)
     manifest = write_corpus(work / "corpus", [30.0] * 8, seed=1)  # phase 9's
-    model_dir = _turbo_dir(work)
-    ctx = {"dev": dev, "work": work, "steps": 8,
-           # + the CTC head's self-attention
-           "per_batch": TURBO["encoder_layers"] + 1,
-           "overrides": lambda name: [
-               *train_overrides(manifest, model_dir, work / name), *NO_AUG]}
+    model_dir = _depth_dir(work, DP_LAYERS)
+    return {"dev": dev, "work": work, "steps": 8,
+            # + the CTC head's self-attention
+            "per_batch": DP_LAYERS + 1,
+            "overrides": lambda name: [
+                *train_overrides(manifest, model_dir, work / name), *NO_AUG]}
+
+
+def _depth_dir(work: Path, layers: int) -> Path:
+    """A model dir of the turbo config at ``layers`` encoder layers (the
+    weights come from the seed), made once under ``work``."""
+    model_dir = work / f"model_{layers}_layers"
+    if not model_dir.exists():
+        model_dir.mkdir(parents=True)
+        (model_dir / "config.json").write_text(json.dumps(
+            {**TURBO, "encoder_layers": layers}))
+    return model_dir
+
+
+def dp_setup(dev) -> dict:
+    """``dp_context`` and two unwrapped runs of the fine-tune in this
+    process: the reference and the loss tolerance of phases 20 and 23; and
+    DP_SPLIT_RUNS runs with each micro-batch split as two data-parallel
+    ranks split it (``_split_loss``): the reference and the loss tolerance
+    of phase 21."""
+    ctx = dp_context(dev)
     ref = _unwrapped_runs(dev, ctx["overrides"]("unwrapped"))
     spread = _max_rel(ref[1]["logged"], ref[0]["logged"])
     ctx.update(ref=ref[0], tol=max(DP_LOSS_FACTOR * spread, DP_LOSS_FLOOR))
     steps = ctx["steps"]
-    p9_line = (f"; phase 9 (with augmentations) {p9['ms_per_update']:.0f} ms "
-               f"per update, peak {p9['peak_gib']:.1f} GiB" if p9 else "")
     log(f"[dp] two unwrapped runs: largest relative loss difference "
         f"{spread:.3g} -> tolerance {ctx['tol']:.3g}; ms per update "
         f"{ref[0]['loop'] * 1e3 / (steps // 2):.0f} / "
         f"{ref[1]['loop'] * 1e3 / (steps // 2):.0f}, peak "
-        f"{ref[0]['peak']:.1f} / {ref[1]['peak']:.1f} GiB{p9_line}")
+        f"{ref[0]['peak']:.1f} / {ref[1]['peak']:.1f} GiB")
     for r in ref:
         _check_train_rank("unwrapped", r, ref[0], ctx["tol"],
                           ctx["per_batch"], steps)
+    # each rank's bf16 weight gradients over its own 2 rows move the losses
+    # from the unwrapped run's by more than a pair of unwrapped runs
+    # samples (1.30e-4 against a tolerance of 1.66e-4 once: PERF.md §6):
+    # phase 21 is held to runs on its own split, within 10 x the larger
+    # spread of the split runs and of the unwrapped pair
+    split = _unwrapped_runs(dev, ctx["overrides"]("split"), n=DP_SPLIT_RUNS,
+                            split=2)
+    split_spread = _spread(split)
+    ctx.update(split_ref=split[0], split_tol=max(
+        DP_LOSS_FACTOR * max(split_spread, spread), DP_LOSS_FLOOR),
+        split_effect=_max_rel(split[0]["logged"], ref[0]["logged"]))
+    log(f"[dp] {DP_SPLIT_RUNS} runs split over 2 ranks' rows: largest "
+        f"relative loss difference of a pair {split_spread:.3g} -> "
+        f"tolerance {ctx['split_tol']:.3g}; the split's effect, split run 1 "
+        f"against unwrapped run 1: {ctx['split_effect']:.3g}")
+    for r in split:
+        # the flash kernels run once a block of rows
+        _check_train_rank("split", r, split[0], ctx["split_tol"],
+                          2 * ctx["per_batch"], steps)
+        _check_train_rank("split (unwrapped)", r, ref[0], math.inf,
+                          2 * ctx["per_batch"], steps)
     return ctx
 
 
@@ -2911,24 +3108,26 @@ def phase_dp_train(ctx: dict) -> dict:
                                              "steps"))
     overrides = ctx["overrides"]
     paths = {}
-    # the two launches share the card at once (their ms per update so too)
+    # the three launches share the card at once (their ms per update so
+    # too); phase 21's: two ranks over gloo, micro-batches of 2
     tags = ("ddp_nccl", "fsdp_nccl")
-    runs = run_ranks_together(*(dict(
+    *runs, recs = run_ranks_together(*(dict(
         tag=tag, nproc=1, argv=["--device", "cuda", *overrides(tag),
                                 f"training.shard_params={str(shard).lower()}"])
-        for shard, tag in zip((False, True), tags)))
+        for shard, tag in zip((False, True), tags)), dict(
+        tag="ddp_gloo_2ranks", nproc=2, argv=[
+            "--device", "cuda:0", "--backend", "gloo", *overrides("gloo")]))
     for tag, (rec,) in zip(tags, runs):
         _check_train_rank(tag, rec, ref, tol, mc, steps)
         paths[f"dicow_v3_train_{tag}"] = rec["launches"]
 
-    # phase 21: two ranks on one card over gloo, micro-batches of 2
-    recs = run_ranks("ddp_gloo_2ranks", ["--device", "cuda:0", "--backend",
-                                         "gloo", *overrides("gloo")], nproc=2)
+    # phase 21, held to the runs on the same split
     if recs[0]["logged"] != recs[1]["logged"]:
         raise AssertionError(f"[ddp_gloo_2ranks] the ranks logged "
                              f"{recs[0]['logged']} and {recs[1]['logged']}")
     for rank, rec in enumerate(recs):
-        _check_train_rank(f"ddp_gloo rank {rank}", rec, ref, tol, mc, steps)
+        _check_split_rank(f"ddp_gloo rank {rank}", rec, ctx)
+    ctx["ddp_gloo"] = recs  # phase 26's reference
     if recs[0]["checksums"] != recs[1]["checksums"]:
         bad = sum(a != b for a, b in zip(recs[0]["checksums"],
                                          recs[1]["checksums"]))
@@ -2940,22 +3139,18 @@ def phase_dp_train(ctx: dict) -> dict:
         f"micro-batch: preheat {gb['preheat'] / 1e6:.1f} MB, base "
         f"{gb['base'] / 1e9:.3f} GB of fp32 gradients (+ 4 B token count)")
     paths["dicow_v3_train_ddp_gloo_2ranks"] = _summed(recs)
-    ctx["ddp_gloo"] = recs  # phase 26's reference
     return paths
 
 
-def phase_lora_fsdp(ctx: dict) -> dict:
-    """Phase 25 (see the module docstring)."""
+def phase_lora_fsdp(ctx: dict, beside: dict) -> dict:
+    """Phase 25 (see the module docstring), launched beside phase 26's
+    ranks (``beside``: autobatch_job's job and check)."""
     steps = LORA_FSDP_STEPS
-    mc = LORA_FSDP_LAYERS + 1  # + the CTC head's self-attention
-    model_dir = ctx["work"] / "model_lora"
-    model_dir.mkdir()
-    (model_dir / "config.json").write_text(json.dumps(
-        {**TURBO, "encoder_layers": LORA_FSDP_LAYERS}))
+    mc = ctx["per_batch"]
 
     def overrides(name):
-        return [*ctx["overrides"](name), f"model.whisper_model={model_dir}",
-                "training.use_lora=true", f"training.max_steps={steps}",
+        return [*ctx["overrides"](name), "training.use_lora=true",
+                f"training.max_steps={steps}",
                 "training.use_fddt_only_n_steps=0"]
 
     ref = _unwrapped_runs(ctx["dev"], overrides("lora_unwrapped"),
@@ -2974,12 +3169,13 @@ def phase_lora_fsdp(ctx: dict) -> dict:
     # Adam's first update on B = 0 turns into sign-sized steps, are noise
     # that no unwrapped pair samples)
     tags = ("lora_ddp_gloo_2ranks", "lora_fsdp_gloo_2ranks")
-    # the two launches share the card at once (their ms per update so too)
-    runs = dict(zip(tags, run_ranks_together(*(dict(
+    # the three launches share the card at once (their ms per update so too)
+    *pair, auto = run_ranks_together(*(dict(
         tag=tag, nproc=2, flash_sites=shard, argv=[
             "--device", "cuda:0", "--backend", "gloo", *overrides(tag),
             f"training.shard_params={str(shard).lower()}"])
-        for shard, tag in zip((False, True), tags)))))
+        for shard, tag in zip((False, True), tags)), beside["job"])
+    runs = dict(zip(tags, pair))
     for tag, recs in runs.items():
         if recs[0]["logged"] != recs[1]["logged"]:
             raise AssertionError(f"[{tag}] the ranks logged "
@@ -3014,65 +3210,170 @@ def phase_lora_fsdp(ctx: dict) -> dict:
         + "; peak FSDP2 " + " / ".join(f"{r['peak']:.1f}" for r in fsdp)
         + ", DDP " + " / ".join(f"{r['peak']:.1f}" for r in ddp) + " GiB")
     return {"dicow_v3_lora_ddp_gloo_2ranks": _summed(ddp),
-            "dicow_v3_lora_fsdp_gloo_2ranks": _summed(fsdp)}
+            "dicow_v3_lora_fsdp_gloo_2ranks": _summed(fsdp),
+            **beside["check"](auto)}
 
 
-def phase_autobatch(ctx: dict) -> dict:
-    """Phase 26 (see the module docstring)."""
-    mc, steps, p21 = ctx["per_batch"], ctx["steps"], ctx["ddp_gloo"]
-    tag = "autobatch_gloo_2ranks"
-    total = torch.cuda.get_device_properties(0).total_memory / 2**30
-    recs = run_ranks(tag, ["--device", "cuda:0", "--backend", "gloo",
-                           *ctx["overrides"]("autobatch"),
-                           "training.gradient_accumulation_steps=1",
-                           "training.auto_find_batch_size=true"],
-                     nproc=2, memory_fraction={1: AUTOBATCH_CAP_GIB / total})
+def _probe_lines(tag: str, recs: list, total: float) -> None:
+    """Each rank's memory probes: outcome, ms, memory at the start and the
+    peak, flash launches; and the memory allocated when the fine-tune
+    started and after each rebuild of its model."""
     for rank, rec in enumerate(recs):
         cap = (f"capped at {rec['memory_fraction'] * total:.1f} GiB"
                if rec["memory_fraction"] else "uncapped")
+        alloc = rec["allocated"]
         log(f"[{tag}] rank {rank} ({cap}) probes: " + "; ".join(
             f"micro-batch {p['micro_batch']} {p['outcome']} in "
             f"{p['ms']:.0f} ms, {p['at_start']:.2f} GiB at its start, peak "
             f"{p['peak']:.2f} GiB (reserved {p['reserved']:.2f}), flash fwd "
             f"/ bwd "
             f"{p['launches']['flash_attn_fwd']} / "
-            f"{p['launches']['flash_attn_bwd']}" for p in rec["probes"]))
+            f"{p['launches']['flash_attn_bwd']}" for p in rec["probes"])
+            + f"; allocated {alloc['fit']:.3f} GiB before the first attempt"
+            + "".join(f", {g:.3f} after a rebuild" for g in alloc["rebuilt"]))
+
+
+def _check_autobatch(tag: str, recs: list, capped: int, total: float,
+                     layers: int, steps: int) -> None:
+    """The checks of an auto_find_batch_size launch from micro-batch 4 and
+    accumulation 1 over ``steps`` micro-batches of a model of ``layers``
+    encoder layers, whose rank ``capped`` is capped between its probes'
+    peaks at 2 and 4: every rank's probes are [(4, out of memory on the
+    capped rank, fits on the others), (2, fits)], every rank trained at
+    micro-batch 2 and accumulation 2, the ranks logged the same finite
+    losses at every micro-batch, each rank's model came back after the
+    rebuild to the memory that it held when the first attempt started
+    (within REBUILD_SLACK_GIB), no micro-batch of the training loop peaked
+    above the last probe (the design's claim), and the loop launched the
+    flash forward and backward in every encoder layer and the CTC head of
+    every micro-batch; after each probe, FSDP2 holds its default comms
+    again and the tensor-parallel all-reduces are real again."""
+    _probe_lines(tag, recs, total)
     for rank, rec in enumerate(recs):
+        left = {(tuple(p["comms_after"]), p["local_only_after"])
+                for p in rec["probes"]}
+        if not left <= {((), False), (("DefaultAllGather",
+                                       "DefaultReduceScatter"), False)}:
+            raise AssertionError(f"[{tag}] rank {rank}: after its probes "
+                                 f"the comms and TP switch were {left}")
         outcomes = [(p["micro_batch"], p["outcome"]) for p in rec["probes"]]
-        first = "OutOfMemoryError" if rank == 1 else "fits"
+        first = "OutOfMemoryError" if rank == capped else "fits"
         if outcomes != [(4, first), (2, "fits")] or \
                 (rec["micro_batch"], rec["accum"]) != (2, 2):
             raise AssertionError(
                 f"[{tag}] rank {rank}: probes {outcomes}, trained at micro-"
                 f"batch {rec['micro_batch']}, accumulation {rec['accum']}")
-    if recs[0]["logged"] != recs[1]["logged"]:
-        raise AssertionError(f"[{tag}] the ranks logged {recs[0]['logged']} "
-                             f"and {recs[1]['logged']}")
-    tol = ctx["tol"]
-    for rank, rec in enumerate(recs):
-        # the training loop's launches: the probes' apart
-        loop = dict(rec, launches={
-            k: v - sum(p["launches"][k] for p in rec["probes"])
-            for k, v in rec["launches"].items()})
-        _check_train_rank(f"{tag} rank {rank}", loop, ctx["ref"], tol, mc,
-                          steps)
-    # the design's claim: no micro-batch of the run exceeds the probe
+        alloc = rec["allocated"]
+        if len(alloc["rebuilt"]) != 1 or \
+                abs(alloc["rebuilt"][0] - alloc["fit"]) > REBUILD_SLACK_GIB:
+            raise AssertionError(
+                f"[{tag}] rank {rank}: {alloc['fit']:.3f} GiB allocated "
+                f"before the first attempt, {alloc['rebuilt']} after the "
+                "rebuild")
+    logged = recs[0]["logged"]
+    if any(r["logged"] != logged for r in recs) or len(logged) != steps \
+            or not all(math.isfinite(r["loss"]) for r in logged):
+        raise AssertionError(f"[{tag}] the ranks logged "
+                             f"{[r['logged'] for r in recs]}")
+    want = (layers + 1) * steps  # + the CTC head's self-attention
+    got = [tuple(r["launches"][k] - sum(p["launches"][k] for p in r["probes"])
+                 for k in ("flash_attn_fwd", "flash_attn_bwd")) for r in recs]
+    if any(g != (want, want) for g in got):
+        raise AssertionError(f"[{tag}] the training loop's flash fwd / bwd "
+                             f"launches per rank {got}, want {want}")
     if any(r["peak"] > r["probes"][-1]["peak"] for r in recs):
         raise AssertionError(
             f"[{tag}] the training loop peaked at "
             f"{[r['peak'] for r in recs]} GiB, over its probe's "
             f"{[r['probes'][-1]['peak'] for r in recs]}")
-    diff = _max_rel(recs[0]["logged"], p21[0]["logged"])
-    if diff > tol:
-        raise AssertionError(f"[{tag}] losses {diff:.3g} from phase 21's "
-                             f"(tolerance {tol:.3g})")
-    log(f"[{tag}] both ranks halved together to micro-batch 2, accumulation "
-        f"2 (phase 21's settings) and logged losses within {diff:.3g} of "
-        f"phase 21's (tolerance {tol:.3g}); the training loop's peak "
+    log(f"[{tag}] every rank halved together to micro-batch 2, accumulation "
+        f"2, and logged the same losses; flash fwd / bwd {want} / {want} a "
+        f"rank in the training loop; its peak "
         + " / ".join(f"{r['peak']:.2f}" for r in recs) + " GiB under the "
         "probe's at micro-batch 2, "
-        + " / ".join(f"{r['probes'][-1]['peak']:.2f}" for r in recs))
-    return {"dicow_v3_train_autobatch_gloo_2ranks": _summed(recs)}
+        + " / ".join(f"{r['probes'][-1]['peak']:.2f}" for r in recs)
+        + "; ms per update " + " / ".join(
+            f"{r['loop'] * 1e3 / (steps // 2):.0f}" for r in recs))
+
+
+def autobatch_job(ctx: dict, micro: int = 4, capped: bool = True) -> dict:
+    """Phase 26 (see the module docstring): the launch ``job`` (from
+    ``micro`` rows, rank 1 held to AUTOBATCH_CAP_GIB when ``capped``) and
+    the ``check`` of its records, which phase 25 runs beside its own
+    launches."""
+    tag = "autobatch_gloo_2ranks"
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    job = dict(tag=tag, nproc=2,
+               memory_fraction={1: AUTOBATCH_CAP_GIB / total} if capped
+               else None,
+               argv=["--device", "cuda:0", "--backend", "gloo",
+                     *ctx["overrides"]("autobatch"),
+                     "training.overall_batch_size=0",
+                     f"training.per_device_train_batch_size={micro}",
+                     "training.gradient_accumulation_steps=1",
+                     "training.auto_find_batch_size=true"])
+
+    def check(recs: list) -> dict:
+        _check_autobatch(tag, recs, 1, total, DP_LAYERS, ctx["steps"])
+        # after the halving it runs phase 21's settings: held to its
+        # references and to its losses
+        tol, p21 = ctx["split_tol"], ctx["ddp_gloo"][0]["logged"]
+        for rank, rec in enumerate(recs):
+            # the training loop's launches: the probes' apart
+            loop = dict(rec, launches={
+                k: v - sum(p["launches"][k] for p in rec["probes"])
+                for k, v in rec["launches"].items()})
+            _check_split_rank(f"{tag} rank {rank}", loop, ctx)
+        diff = _max_rel(recs[0]["logged"], p21)
+        if diff > tol:
+            raise AssertionError(f"[{tag}] losses {diff:.3g} from phase 21's "
+                                 f"(tolerance {tol:.3g})")
+        log(f"[{tag}] losses within {diff:.3g} of phase 21's (tolerance "
+            f"{tol:.3g})")
+        return {"dicow_v3_train_autobatch_gloo_2ranks": _summed(recs)}
+    return {"job": job, "check": check}
+
+
+def autobatch_sharded_jobs(ctx: dict, micro: int = 4, capped: bool = True
+                           ) -> list:
+    """Phase 28's two launches (run_ranks_together's jobs): the fine-tune
+    with auto_find_batch_size=true and FSDP2 from ``micro`` rows and
+    accumulation 1 over AUTOBATCH_SHARDED_STEPS micro-batches of the base
+    phase (no preheat), at full width and the depth of each entry of
+    AUTOBATCH_SHARDED, its capped rank held to its cap when ``capped``."""
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    jobs = []
+    for tag, layers, shape, rank, cap in AUTOBATCH_SHARDED:
+        model_dir = _depth_dir(ctx["work"], layers)
+        mesh = [f"training.mesh_shape=[{','.join(map(str, shape))}]"]
+        if len(shape) == 2:
+            mesh.append("training.mesh_axis_names=[data,model]")
+        jobs.append(dict(
+            tag=tag, nproc=math.prod(shape),
+            memory_fraction={rank: cap / total} if capped else None,
+            argv=["--device", "cuda:0", "--backend", "gloo",
+                  *ctx["overrides"](tag), f"model.whisper_model={model_dir}",
+                  "training.overall_batch_size=0",
+                  f"training.per_device_train_batch_size={micro}",
+                  "training.gradient_accumulation_steps=1",
+                  f"training.max_steps={AUTOBATCH_SHARDED_STEPS}",
+                  "training.use_fddt_only_n_steps=0",
+                  "training.auto_find_batch_size=true",
+                  "training.shard_params=true", *mesh]))
+    return jobs
+
+
+def phase_autobatch_sharded(ctx: dict) -> dict:
+    """Phase 28 (see the module docstring)."""
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    paths = {}
+    for (tag, layers, _, capped, _), recs in zip(
+            AUTOBATCH_SHARDED,
+            run_ranks_together(*autobatch_sharded_jobs(ctx))):
+        _check_autobatch(tag, recs, capped, total, layers,
+                         AUTOBATCH_SHARDED_STEPS)
+        paths[tag] = _summed(recs)
+    return paths
 
 
 def _summed(recs: list) -> dict:
@@ -3439,22 +3740,13 @@ def run_tool(tag: str, module: str, args: list) -> dict:
     return finish_tool(tag, start_tool(module, args))
 
 
-def phase_tools(dev) -> dict:
-    """Phase 27: the device tools of ts_asr_whisper_tpu_torch/scripts as
-    child processes at full turbo width, each of which must exit 0:
-    export_dicow of a turbo checkpoint written here with
-    save_model_checkpoint (on the CPU, beside the next three: the export
-    loads strictly into the port's container and every tensor equals the
-    saved model's), cuda_kernel_check (all six kernels matched),
-    probe_psi_gather, probe_train_batch at micro-batches 4 and 16,
-    smoke_decode of the export on phase 7's recordings (scored by the
-    native tcpWER library), and profile_decode at --max-new 64 and with
-    --reorder pallas (every stage with its device ms). Returns each tool's
-    kernel launches."""
-    import re
-
+def start_export(dev) -> dict:
+    """Phase 27's first tool, started early: a checkpoint of the turbo
+    width at DP_LAYERS encoder layers written with
+    save_model_checkpoint, and export_dicow of it in a child process
+    on the CPU, which runs while phase 28's ranks and the next tools run
+    (``phase_tools`` waits for it)."""
     from ts_asr_whisper_tpu_torch.config import load_config
-    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
     from ts_asr_whisper_tpu_torch.models.containers import WhisperContainer
     from ts_asr_whisper_tpu_torch.training.checkpoints import \
         save_model_checkpoint
@@ -3463,11 +3755,12 @@ def phase_tools(dev) -> dict:
     torch.cuda.empty_cache()
     work = WORK / "tools"
     shutil.rmtree(work, ignore_errors=True)
-    t_phase = time.perf_counter()
-    paths = {}
-
-    # a turbo checkpoint, exported by the tool while the next ones run
-    model_dir = _turbo_dir(work)
+    # at DP_LAYERS encoder layers: the checkpoint and its export
+    # are written to disk, whose writes the machine bounds
+    model_dir = work / "model"
+    model_dir.mkdir(parents=True)
+    (model_dir / "config.json").write_text(json.dumps(
+        {**TURBO, "encoder_layers": DP_LAYERS}))
     overrides = [f"model.whisper_model={model_dir}", "model.ctc_weight=0.3"]
     container = WhisperContainer(load_config(overrides), dev, seed=11)
     saved = {k: v.detach().cpu().clone()
@@ -3477,8 +3770,34 @@ def phase_tools(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     export = work / "export"
-    exporting = start_tool("export_dicow", ["--ckpt", work / "ckpt", "--out",
-                                            export, *overrides])
+    return {"work": work, "saved": saved, "export": export,
+            "started": start_tool("export_dicow",
+                                  ["--ckpt", work / "ckpt", "--out", export,
+                                   *overrides])}
+
+
+def phase_tools(dev, exporting: dict) -> dict:
+    """Phase 27: the device tools of ts_asr_whisper_tpu_torch/scripts as
+    child processes at full turbo width, each of which must exit 0:
+    export_dicow (``start_export``'s; the export loads strictly into the
+    port's container and every tensor equals the saved model's),
+    cuda_kernel_check (all six kernels matched), probe_psi_gather
+    (--quick), probe_train_batch at micro-batches 4 and 8, smoke_decode of
+    the export on phase 7's recordings (scored by the native tcpWER
+    library), and profile_decode at --max-new 32 and with --reorder pallas
+    (every stage with its device ms). Returns each tool's kernel
+    launches."""
+    import re
+
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.data.synthetic import write_corpus
+    from ts_asr_whisper_tpu_torch.models.containers import WhisperContainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work, saved, export = (exporting[k] for k in ("work", "saved", "export"))
+    t_phase = time.perf_counter()
+    paths = {}
 
     res = run_tool("cuda_kernel_check", "cuda_kernel_check", [])
     if "OK: all six CUDA kernels match" not in res["out"] or not all(
@@ -3486,21 +3805,21 @@ def phase_tools(dev) -> dict:
         raise AssertionError(f"cuda_kernel_check: {res['launches']}")
     paths["tool:cuda_kernel_check"] = res["launches"]
 
-    res = run_tool("probe_psi_gather", "probe_psi_gather", [])
+    res = run_tool("probe_psi_gather", "probe_psi_gather", ["--quick"])
     if not res["launches"]["psi_gather_dot"]:
         raise AssertionError("probe_psi_gather launched no psi kernel")
     paths["tool:probe_psi_gather"] = res["launches"]
 
     res = run_tool("probe_train_batch", "probe_train_batch",
-                   ["--batches", 4, 16])
+                   ["--batches", 4, 8])
     recs = [json.loads(x) for x in res["out"].splitlines()
             if x.startswith("{")]
-    if [r["batch"] for r in recs] != [4, 16] or not recs[0]["ok"] or \
+    if [r["batch"] for r in recs] != [4, 8] or not recs[0]["ok"] or \
             not res["launches"]["flash_attn_bwd"]:
         raise AssertionError(f"probe_train_batch: {recs}")
     paths["tool:probe_train_batch"] = res["launches"]
 
-    res = finish_tool("export_dicow", exporting)
+    res = finish_tool("export_dicow", exporting["started"])
     if f"Exported step 7 to {export}" not in res["out"]:
         raise AssertionError("export_dicow: no export line")
     paths["tool:export_dicow"] = res["launches"]
@@ -3537,7 +3856,7 @@ def phase_tools(dev) -> dict:
     for tag, args in (("profile_decode", []),
                       ("profile_decode_reorder_pallas",
                        ["--reorder", "pallas"])):
-        res = run_tool(tag, "profile_decode", ["--max-new", 64, *args])
+        res = run_tool(tag, "profile_decode", ["--max-new", 32, *args])
         lines = res["out"].splitlines()
         for stage in DECODE_STAGES:
             hit = [x for x in lines if stage in x]
@@ -3570,7 +3889,7 @@ def main() -> int:
     mark(t_start, "phases 1-6 and 19")
     paths = {"dicow_v3_greedy": phase_decode(dev),
              "dicow_v3_beam_joint": phase_beam_decode(dev)["launches"],
-             "dicow_v3_train": (p9 := phase_train(dev))["launches"],
+             "dicow_v3_train": phase_train(dev)["launches"],
              "se_dicow_beam_joint": phase_se_dicow(
                  dev, "bhtd", [60.0] * 2)["launches"],
              "se_dicow_beam_joint_tbhd": phase_se_dicow(
@@ -3585,20 +3904,21 @@ def main() -> int:
         dev)["launches"]
     paths["dicow_v3_greedy_token_ts"] = phase_token_ts(dev)["launches"]
     mark(t_start, "phases 7-18")
-    ctx = dp_setup(dev, p9)
+    ctx = dp_setup(dev)
     paths.update(phase_dp_train(ctx))
     mark(t_start, "phases 20-21")
     paths.update(phase_tp_train(ctx, phase_sharded_eval(dev)))
     mark(t_start, "phases 22-23")
     paths.update(phase_tp_se_dicow(dev))
     mark(t_start, "phase 24")
-    paths.update(phase_lora_fsdp(ctx))
-    mark(t_start, "phase 25")
-    paths.update(phase_autobatch(ctx))
-    mark(t_start, "phase 26")
+    paths.update(phase_lora_fsdp(ctx, autobatch_job(ctx)))
+    mark(t_start, "phases 25-26")
+    exporting = start_export(dev)  # phase 27's export, on the CPU
+    paths.update(phase_autobatch_sharded(ctx))
+    mark(t_start, "phase 28")
     shutil.rmtree(ctx.pop("work"), ignore_errors=True)
     phase_devicetime_gate(dev, early, time.perf_counter() - t_start)
-    paths.update(phase_tools(dev))
+    paths.update(phase_tools(dev, exporting))
     mark(t_start, "phase 27")
     from ts_asr_whisper_tpu_torch.kernels import KERNEL_SOURCES
 

@@ -6,7 +6,8 @@
 Builds the two flash kernels, runs phase 20's two unwrapped dicow_v3
 fine-tunes at large-v3-turbo width (the reference and the loss tolerance),
 then phase 23 (the fine-tune on a mesh [1, 2], two ranks sharing the card
-over gloo through torchrun and the CLI) and phase 24 (SE-DiCoW at 4
+over gloo through torchrun and the CLI, beside phase 22's sharded decode)
+and phase 24 (SE-DiCoW at 4
 encoder layers and 2 SCBs on a mesh [2, 2], four ranks); see
 chip_smoke.py's docstring. Prints what those phases print and, last, the
 launch counts of each path as one JSON object.
@@ -30,7 +31,7 @@ def main() -> int:
 
     kernels.build_all(["flash_attn_fwd", "flash_attn_bwd"])
     ctx = C.dp_setup(dev)
-    paths = C.phase_tp_train(ctx)
+    paths = C.phase_tp_train(ctx, C.phase_sharded_eval(dev))
     paths.update(C.phase_tp_se_dicow(dev))
     print(json.dumps(paths))
     return 0

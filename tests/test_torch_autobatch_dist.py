@@ -14,9 +14,10 @@ decision together:
 
 Each run is bounded by the spawn timeout, so a rank left waiting in a
 collective fails the test instead of stalling the suite. And the scope:
-``check_scope`` refuses the option under FSDP2 and under a ``model`` axis
-(the probe's forward holds collectives there), accepts it under DDP, and
-accepts LoRA under FSDP2."""
+``check_scope`` accepts the option under DDP, under FSDP2, under a
+``model`` axis and under both (the probe runs no collective there either:
+tests/test_torch_autobatch_{sharded,probe}.py), and accepts LoRA under
+FSDP2."""
 
 import pytest
 import torch
@@ -96,23 +97,19 @@ def test_no_error_no_halving_and_no_trace(
     _assert_equal_states(_states(tmp_path, "auto"), _states(tmp_path, "ref"))
 
 
-@pytest.mark.parametrize("overrides, match", [
-    (("training.auto_find_batch_size=true", "training.shard_params=true"),
-     "under FSDP2"),
-    (("training.auto_find_batch_size=true", "training.mesh_shape=[1,2]",
-      "training.mesh_axis_names=[data,model]"), "'model' axis above 1")])
-def test_scope_refuses_auto_batch_where_the_probe_holds_collectives(
-        overrides, match):
-    with pytest.raises(NotImplementedError, match=match):
-        check_scope(_cfg(*overrides), world=2)
-
-
 @pytest.mark.parametrize("overrides", [
     ("training.auto_find_batch_size=true",),
     ("training.auto_find_batch_size=true", "training.mesh_shape=[2,1]",
      "training.mesh_axis_names=[data,model]"),
+    ("training.auto_find_batch_size=true", "training.shard_params=true"),
+    ("training.auto_find_batch_size=true", "training.mesh_shape=[1,2]",
+     "training.mesh_axis_names=[data,model]"),
+    ("training.auto_find_batch_size=true", "training.mesh_shape=[2,2]",
+     "training.mesh_axis_names=[data,model]", "training.shard_params=true"),
     ("training.use_lora=true", "training.shard_params=true"),
     ("training.use_lora=true", "training.shard_params=true",
      "training.mesh_shape=[1,2]", "training.mesh_axis_names=[data,model]")])
 def test_scope_accepts_auto_batch_under_ddp_and_lora_under_fsdp(overrides):
-    check_scope(_cfg(*overrides), world=2)
+    # the mesh covers the world
+    world = 4 if "training.mesh_shape=[2,2]" in overrides else 2
+    check_scope(_cfg(*overrides), world=world)

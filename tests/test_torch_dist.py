@@ -3,11 +3,11 @@ CPU (gloo), after tests/test_multiprocess.py:
 
 - parallel/dist.py's primitives across 2 live processes;
 - the scope: a ``model`` mesh axis (tensor parallelism) that does not
-  divide the heads, a mesh larger or smaller than the world, pre-training
-  and ``auto_find_batch_size`` under ``shard_params`` at a world above 1
-  are refused, each with its reason; a ``data`` mesh, or ``data`` x
-  ``model``, over the world is not, nor ``auto_find_batch_size`` under DDP
-  or LoRA under ``shard_params``; the default backend takes NCCL for
+  divide the heads, a mesh larger or smaller than the world and
+  pre-training at a world above 1 are refused, each with its reason; a
+  ``data`` mesh, or ``data`` x ``model``, over the world is not, nor
+  ``auto_find_batch_size`` under DDP or ``shard_params``, nor LoRA under
+  ``shard_params``; the default backend takes NCCL for
   CUDA tensors and fails where there is none, it never falls back to
   gloo;
 - rank-sharded long-form eval through the CLI (``decode_only``): rank 0
@@ -82,8 +82,6 @@ def _cfg(*overrides):
     (("training.mesh_shape=[4]",), ValueError, "needs 4 devices, have 2"),
     (("training.mesh_shape=[1]",), ValueError, "covers 1 of the 2 ranks"),
     (("+pretrain=turbo",), NotImplementedError, "pre-training runs on one"),
-    (("training.auto_find_batch_size=true", "training.shard_params=true"),
-     NotImplementedError, "leaves the other ranks waiting"),
 ])
 def test_scope_refuses_at_world_two(overrides, error, match, tmp_path):
     # a model of 3 heads: a model axis of 2 would split one
@@ -102,6 +100,7 @@ def test_scope_refuses_at_world_two(overrides, error, match, tmp_path):
     ("training.use_lora=true", "training.shard_params=true"),
     ("training.auto_find_batch_size=true",),
     ("training.auto_find_batch_size=true", "training.decode_only=true"),
+    ("training.auto_find_batch_size=true", "training.shard_params=true"),
     ("training.mesh_shape=[1,2]", "training.mesh_axis_names=[data,model]"),
     ("training.mesh_shape=[2,1]", "training.mesh_axis_names=[data,model]")])
 def test_scope_accepts_a_data_mesh_over_the_world(overrides):

@@ -78,6 +78,39 @@ def test_one_step_loss_and_gradients_match_jax(remat):
                                    rtol=1e-4, atol=1e-5, err_msg=name)
 
 
+def test_loss_fn_blocks_with_the_global_token_count_sum_to_the_batch():
+    """The batch taken in two blocks of one row, as two data-parallel ranks
+    take it (each block's labels cut to its own longest row), with the
+    global token count and ``world`` 2: the blocks' losses, parts and
+    gradients sum to the JAX loss and gradients of the whole batch."""
+    jcfg, params, tcfg, model = U.make_pair(seed=0,
+                                            remove_timestamps_from_ctc=True)
+    batch = _batch(np.random.default_rng(1), jcfg)
+    (jtotal, jparts), jgrads = jax.value_and_grad(
+        _jax_loss(jcfg, batch), has_aux=True)(params)
+    tb = TT.to_device(batch, "cpu")
+    n_tokens = (tb["labels"] != -100).sum().float()
+    total, parts = 0.0, {}
+    for i in range(2):
+        block = {k: v[i:i + 1] for k, v in tb.items()}
+        width = int((block["labels"] != -100).sum())
+        for key in ("labels", "upp_labels"):
+            block[key] = block[key][:, :width]
+        t, p = TT.loss_fn(model, tcfg, block, NUM_PREFIX, n_tokens=n_tokens,
+                          world=2)
+        t.backward()
+        total = total + float(t)
+        parts = {k: parts.get(k, 0.0) + float(v) for k, v in p.items()}
+    np.testing.assert_allclose(total, float(jtotal), rtol=1e-5)
+    for k in jparts:
+        np.testing.assert_allclose(parts[k], float(jparts[k]), rtol=1e-5,
+                                   err_msg=k)
+    ref = state_dict_from_jax(jax.tree.map(np.asarray, jgrads), tcfg)
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), ref[name].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+
+
 def test_shift_tokens_right_matches():
     labels = np.array([[5, 6, 7, -100], [8, -100, -100, -100]])
     ref = np.asarray(JT.shift_tokens_right(jnp.asarray(labels), 3, 9))

@@ -1,6 +1,6 @@
 """Multi-process worker of the port's data- and tensor-parallel tests
 (tests/test_torch_dist.py, test_torch_ddp.py, test_torch_fsdp.py,
-test_torch_tp.py), after tests/mp_worker.py. Not collected by pytest; run
+test_torch_tp.py, test_torch_autobatch_*.py), after tests/mp_worker.py. Not collected by pytest; run
 as
 
     python tests/torch_mp_worker.py MODE OUTDIR INIT_FILE RANK WORLD ARGS_JSON
@@ -36,8 +36,21 @@ and writes ``rank<RANK>.json`` into OUTDIR. Modes:
 - ``autobatch``: fine-tunes through ``ModelTrainer.train``, one after the
   other in this process, each with ARGS_JSON's overrides and optionally a
   fault raised in one rank's first memory probe (an out-of-memory error or
-  a ValueError); the micro-batch of every probe, the final micro-batch and
-  accumulation, and the final state dict (``<tag><RANK>.pt``).
+  a ValueError), before it or, with the fault's ``at: "encoder_layer1"``,
+  from a forward pre-hook on encoder layer 1 inside the probe's forward
+  (after layer 0's collectives); the micro-batch of every probe, the final
+  micro-batch and accumulation, and the final state dict
+  (``<tag><RANK>.pt``);
+- ``probe_alone``: every rank builds the Trainer on ARGS_JSON's mesh, then
+  rank 0 alone runs ``Trainer.probe_step`` on its first micro-batch while
+  the others wait at a barrier, which rank 0 joins after it;
+- ``probe_comms``: a Trainer probes its first micro-batch, then trains on
+  it; a second Trainer on the same weights trains on it unprobed. The
+  ``allocate`` calls of the FSDP2 comms (kind, size, dtype, class) in the
+  probe
+  and in the real step, the comm classes after the probe, and both
+  steps' loss parts and final whole states (``state<RANK>_<probed|
+  plain>.pt``).
 """
 
 import json
@@ -394,9 +407,20 @@ def run_autobatch(outdir, rank, args):
         def probe_step(self, batch):
             probed.append(self.cfg.training.per_device_train_batch_size)
             fault = run.get("fault")
-            if fault and fault["rank"] == rank and len(probed) == 1:
+            if not (fault and fault["rank"] == rank and len(probed) == 1):
+                return probe(self, batch)
+            if fault.get("at") != "encoder_layer1":
                 raise faults[fault["error"]]()
-            return probe(self, batch)
+
+            def fail(module, inputs):
+                raise faults[fault["error"]]()
+
+            hook = self.model.encoder.layers[1].register_forward_pre_hook(
+                fail)
+            try:
+                return probe(self, batch)
+            finally:
+                hook.remove()
 
         Trainer.probe_step = probe_step
         try:
@@ -415,9 +439,111 @@ def run_autobatch(outdir, rank, args):
     return out
 
 
+def _first_probe_batch(cfg):
+    """A ModelTrainer on ``cfg`` and the first micro-batch of this rank's
+    data coordinate (each rank loads its own: the augmentations are off)
+    with the labels the probe gives it, as tensors."""
+    from ts_asr_whisper_tpu_torch.parallel import dist
+    from ts_asr_whisper_tpu_torch.parallel.mesh import (DATA_AXIS, axis_rank,
+                                                        axis_size, make_mesh)
+    from ts_asr_whisper_tpu_torch.train import ModelTrainer, probe_batch
+    from ts_asr_whisper_tpu_torch.training.dataloader import DataLoader
+    from ts_asr_whisper_tpu_torch.training.trainer import to_device
+
+    t = cfg.training
+    mt = ModelTrainer(cfg, "cpu")
+    mesh = make_mesh(t.mesh_shape, t.mesh_axis_names, "cpu")
+    loader = DataLoader(mt.train_dataset, mt.collator,
+                        batch_size=t.per_device_train_batch_size
+                        * dist.world_size(), seed=t.seed, num_workers=1,
+                        process_index=axis_rank(mesh, DATA_AXIS),
+                        process_count=axis_size(mesh, DATA_AXIS))
+    first = next(iter(loader))
+    probe = to_device(probe_batch(first, mt.probe_width()), "cpu")
+    return mt, to_device(first, "cpu"), probe
+
+
+def run_probe_alone(outdir, rank, args):
+    import time
+
+    import torch.distributed as tdist
+
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.parallel import dist
+    from ts_asr_whisper_tpu_torch.training.trainer import Trainer
+
+    cfg = load_config(list(args["overrides"]), n_devices=dist.world_size())
+    mt, _, probe = _first_probe_batch(cfg)
+    trainer = Trainer(cfg, mt.model, num_prefix_tokens=2)
+    t0 = time.perf_counter()
+    if rank == 0:
+        trainer.probe_step(probe)
+    probed = time.perf_counter() - t0
+    tdist.barrier()
+    return {"probed_alone": rank == 0, "probe_s": probed,
+            "grads_left": sum(p.grad is not None
+                              for p in trainer.model.parameters())}
+
+
+def run_probe_comms(outdir, rank, args):
+    import torch
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.fsdp._fully_shard import _fsdp_collectives as C
+
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.models.containers import WhisperContainer
+    from ts_asr_whisper_tpu_torch.parallel import dist
+    from ts_asr_whisper_tpu_torch.parallel import mesh as M
+    from ts_asr_whisper_tpu_torch.parallel import tensor as T
+    from ts_asr_whisper_tpu_torch.parallel.mesh import full_state_dict
+    from ts_asr_whisper_tpu_torch.training.trainer import Trainer
+
+    calls = []
+
+    def recorded(cls, kind):
+        allocate = cls.allocate
+
+        def wrapper(self, size, *, dtype, device):
+            calls.append([kind, [int(n) for n in size], str(dtype),
+                          cls.__name__])
+            return allocate(self, size, dtype=dtype, device=device)
+        cls.allocate = wrapper
+
+    for cls, kind in ((C.DefaultAllGather, "all_gather"),
+                      (M._LocalAllGather, "all_gather"),
+                      (C.DefaultReduceScatter, "reduce_scatter"),
+                      (M._LocalReduceScatter, "reduce_scatter")):
+        recorded(cls, kind)
+    cfg = load_config(list(args["overrides"]), n_devices=dist.world_size())
+    mt, batch, probe = _first_probe_batch(cfg)
+    out = {}
+    trainer = Trainer(cfg, mt.model, num_prefix_tokens=2)
+    trainer.probe_step(probe)
+    out["probe_allocs"], calls[:] = list(calls), []
+    out["comms_after_probe"] = sorted({
+        type(c).__name__ for m in trainer.model.modules()
+        if isinstance(m, FSDPModule) for g in M._fsdp_param_groups(m)
+        for c in (g._all_gather_comm, g._reduce_scatter_comm)})
+    out["local_only_after_probe"] = T.local_only["on"]
+    models = {"probed": trainer.model,
+              "plain": WhisperContainer(cfg, "cpu",
+                                        seed=cfg.training.seed).model}
+    for tag, model in models.items():
+        if tag == "plain":
+            trainer = Trainer(cfg, model, num_prefix_tokens=2)
+        parts = trainer.train_step(batch)
+        parts = trainer._global_parts(parts)
+        out[f"{tag}_parts"] = {k: float(v) for k, v in parts.items()}
+        out[f"{tag}_allocs"], calls[:] = list(calls), []
+        torch.save(full_state_dict(trainer.model, to_cpu=False),
+                   os.path.join(outdir, f"state{rank}_{tag}.pt"))
+    return out
+
+
 MODES = {"primitives": run_primitives, "train": run_train, "cli": run_cli,
          "resume": run_resume, "tp_modules": run_tp_modules,
-         "batches": run_batches, "autobatch": run_autobatch}
+         "batches": run_batches, "autobatch": run_autobatch,
+         "probe_alone": run_probe_alone, "probe_comms": run_probe_comms}
 
 
 def spawn(mode, outdir, world, args, timeout=120, check=True):

@@ -96,8 +96,9 @@ def check_scope(cfg: Cfg, world: Optional[int] = None) -> None:
     what runs on one device only. A decode ignores the ``model`` axis: it
     shards its batches over every rank, as the JAX CLI builds its eval
     mesh from the local devices alone (train.py:171-181).
-    ``auto_find_batch_size`` runs over DDP only (train.py::ModelTrainer.
-    _fit: a probe before the first update, with no collective inside)."""
+    ``auto_find_batch_size`` runs on any mesh, DDP or FSDP2 (train.py::
+    ModelTrainer._probe: a probe before the first update that runs no
+    collective)."""
     t = cfg.training
     world = pdist.world_size() if world is None else world
     shape = check_mesh(t.mesh_shape, t.mesh_axis_names, world)
@@ -117,15 +118,6 @@ def check_scope(cfg: Cfg, world: Optional[int] = None) -> None:
         raise NotImplementedError(
             "encoder pre-training runs on one device: the JAX package gives "
             "it no mesh and no process awareness (pretrain_encoder.py)")
-    if t.auto_find_batch_size and not t.decode_only and (
-            t.shard_params or tp > 1):
-        raise NotImplementedError(
-            "training.auto_find_batch_size under FSDP2 (training."
-            "shard_params) or a 'model' axis above 1: the memory probe's "
-            "forward all-gathers parameters or all-reduces activations, and "
-            "an out-of-memory error between two of those collectives leaves "
-            "the other ranks waiting in the next; set "
-            "per_device_train_batch_size instead")
 
 
 def scoring_backend() -> str:

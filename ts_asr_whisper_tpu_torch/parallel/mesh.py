@@ -22,7 +22,12 @@ Counterpart of ts_asr_whisper_tpu/parallel/mesh.py:24-108:
 - ``shard_batch`` has no counterpart: the DataLoader gives each data
   coordinate its local rows of every global batch
   (training/dataloader.py:87-88), and ``model_peer_batches``
-  (parallel/tensor.py) hands them to the model group.
+  (parallel/tensor.py) hands them to the model group;
+- ``local_collectives`` has no counterpart: the memory probe of
+  ``auto_find_batch_size`` (train.py) runs the wrapped forward and
+  backward with every collective inside replaced by an allocation of the
+  same size, so that no rank waits on another until the probe's outcome
+  is all-reduced (the JAX retry wraps the whole SPMD step instead).
 
 FSDP2 units: every encoder and decoder layer (with its LoRA adapters),
 the encoder and the whole model. FSDP2 all-gathers one dtype per unit, so a
@@ -36,8 +41,9 @@ a ``forward`` does.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -45,6 +51,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel as DDP
 
 from . import dist as pdist
+from . import tensor as ptensor
 from .tensor import gather_state_dict, group_rank, model_group, \
     shard_state_dict
 
@@ -166,6 +173,80 @@ def release(wrapped: nn.Module) -> None:
     another wrapper takes them."""
     if isinstance(wrapped, DDP):
         wrapped._remove_autograd_hooks()
+
+
+class _LocalAllGather:
+    """FSDP2's all-gather comm without the collective: the buffer as its
+    default comm allocates it, every slot filled with this rank's own shard
+    (finite, deterministic values of the whole parameter's size)."""
+
+    def allocate(self, size, *, dtype, device) -> torch.Tensor:
+        return torch.empty(*size, dtype=dtype, device=device)
+
+    def __call__(self, output_tensor, input_tensor, group, async_op=False):
+        # the input is this rank's slot of the output (FSDP2's copy-in)
+        slots = output_tensor.view(group.size(), -1)
+        for r in range(group.size()):
+            if r != group.rank():
+                slots[r].copy_(input_tensor.view(-1))
+        return None
+
+
+class _LocalReduceScatter:
+    """FSDP2's reduce-scatter comm without the collective: the buffers as
+    its default comm allocates them, the output this rank's slice of the
+    input."""
+
+    def allocate(self, size, *, dtype, device) -> torch.Tensor:
+        return torch.empty(*size, dtype=dtype, device=device)
+
+    def __call__(self, output_tensor, input_tensor, group, op=None,
+                 async_op=False):
+        output_tensor.copy_(input_tensor.view(group.size(), -1)[group.rank()])
+        return None
+
+
+def _fsdp_param_groups(unit) -> list:
+    """The FSDP2 parameter groups of one ``fully_shard`` unit: a list in
+    torch 2.13 (per-parameter meshes), one group or None in torch 2.11."""
+    state = unit._get_fsdp_state()
+    groups = getattr(state, "_fsdp_param_groups", None)
+    if groups is None:
+        group = getattr(state, "_fsdp_param_group", None)
+        groups = [] if group is None else [group]
+    return list(groups)
+
+
+@contextlib.contextmanager
+def local_collectives(model: nn.Module) -> Iterator[None]:
+    """Within it, the forward and backward of ``model`` run no collective
+    and allocate what they would with them: every FSDP2 unit all-gathers
+    and reduce-scatters through ``_LocalAllGather`` / ``_LocalReduceScatter``
+    (``set_custom_all_gather`` / ``set_custom_reduce_scatter``), and the
+    tensor-parallel all-reduces keep their buffers and skip the collective
+    (``tensor.local_only``). The comms that FSDP2 held are put back on exit.
+    The gradient sync stays on, so FSDP2 frees each unsharded gradient
+    after its reduce-scatter as in a training step (``set_requires_
+    gradient_sync(False)`` would keep them). DDP's bucket all-reduce is not
+    replaced: a probe under DDP runs in ``no_sync``."""
+    from torch.distributed.fsdp import FSDPModule
+
+    units = [m for m in model.modules() if isinstance(m, FSDPModule)]
+    held = [(u, [(g._all_gather_comm, g._reduce_scatter_comm)
+                 for g in _fsdp_param_groups(u)]) for u in units]
+    try:
+        for u in units:
+            u.set_custom_all_gather(_LocalAllGather())
+            u.set_custom_reduce_scatter(_LocalReduceScatter())
+        ptensor.local_only["on"] = True
+        yield
+    finally:
+        ptensor.local_only["on"] = False
+        for u, comms in held:
+            for g, (all_gather, reduce_scatter) in zip(
+                    _fsdp_param_groups(u), comms):
+                g._all_gather_comm = all_gather
+                g._reduce_scatter_comm = reduce_scatter
 
 
 def shard_group(model: nn.Module):

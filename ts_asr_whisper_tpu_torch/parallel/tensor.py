@@ -47,6 +47,11 @@ _ROW = {("out_proj", "weight"), ("fc2", "weight")}
 # sums), backward (the gradients of the column-parallel inputs) and
 # whole_grads (``sync_whole_grads``, once a micro-batch)
 reduced_bytes = {"forward": 0, "backward": 0, "whole_grads": 0}
+# set by parallel/mesh.py::local_collectives for a memory probe: the
+# forward's and backward's all-reduces keep their buffers and skip the
+# collective. A module global, not a thread-local: on the card autograd
+# runs the backward on a thread of its own
+local_only = {"on": False}
 
 
 def tp_dim(name: str) -> Optional[int]:
@@ -67,7 +72,11 @@ def group_rank(group) -> int:
 
 
 def _all_reduce(x: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` in a new buffer; this rank's own
+    ``x`` in it, uncounted, under ``local_only``."""
     x = x.contiguous().clone()
+    if local_only["on"]:
+        return x
     reduced_bytes[kind] += x.numel() * x.element_size()
     dist.all_reduce(x, group=group)
     return x
@@ -260,15 +269,22 @@ def model_peer_batches(batches: Iterable, group, build: bool
     ``group``, the others receive them, so every model peer computes on the
     same rows (the collator's augmentations draw from unseeded global
     generators); one batch at a time, as the trainer asks, and a None at
-    the end. ``batches`` itself at tp = 1."""
+    the end; closing the generator closes the source. ``batches`` itself
+    at tp = 1."""
     if group_size(group) == 1:
         yield from batches
         return
     src = dist.get_global_rank(group, 0)
     it = iter(batches) if build else None
-    while True:
-        box = [next(it, None) if build else None]
-        dist.broadcast_object_list(box, src=src, group=group)
-        if box[0] is None:
-            return
-        yield box[0]
+    try:
+        while True:
+            box = [next(it, None) if build else None]
+            dist.broadcast_object_list(box, src=src, group=group)
+            if box[0] is None:
+                return
+            yield box[0]
+    finally:
+        # closed early (auto_find_batch_size halving): the source's
+        # workers stop now, not when the generator is collected
+        if hasattr(it, "close"):
+            it.close()

@@ -2,9 +2,10 @@
 re-init) -> train dataset and collator (SE-DiCoW: with enrollments) ->
 Trainer with long-form dev evals, checkpoint and best-model callbacks
 (retried at half the micro-batch on running out of memory with
-``training.auto_find_batch_size``; over several ranks the decision is
-taken by every rank together, from a probe before the first update) ->
-LoRA merge -> HF export -> final test eval.
+``training.auto_find_batch_size``; over several ranks, under DDP, FSDP2
+and a ``model`` axis alike, the decision is taken by every rank together,
+from a probe before the first update that runs no collective) -> LoRA
+merge -> HF export -> final test eval.
 
 Counterpart of the train branch of ts_asr_whisper_tpu/train.py
 (``ModelTrainer.__init__`` :82-142, ``_fit`` :314-399, ``train`` :401-490).
@@ -44,8 +45,9 @@ from .models.containers import WhisperContainer
 from .models.dicow import DiCoW
 from .parallel import dist as pdist
 from .parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_reduce_max,
-                            axis_group, axis_rank, axis_size, full_state_dict,
-                            is_sharded, load_full_state_dict)
+                            all_reduce_sum, axis_group, axis_rank, axis_size,
+                            full_state_dict, is_sharded,
+                            load_full_state_dict)
 from .parallel.tensor import model_group, model_peer_batches
 from .training.checkpoints import (export_hf_checkpoint, restore_checkpoint,
                                    save_model_checkpoint)
@@ -148,7 +150,11 @@ class ModelTrainer:
     def _rebuild_model(self, resume_path) -> None:
         """A fresh container from the initial weights, re-initialized and
         resumed as at the start (train.py:333-353): a failed attempt may
-        have updated the parameters, and its memory goes first."""
+        have updated the parameters, and its memory goes first (the caller
+        has dropped its Trainer, and with it the FSDP2 shards and hooks, the
+        sliced parameters and the optimizer state). The resumed weights go
+        into the plain model, which the next Trainer slices and shards as
+        it did the first."""
         self.runner.container = None
         gc.collect()
         if torch.cuda.is_available():
@@ -199,11 +205,11 @@ class ModelTrainer:
         retried at half the micro-batch and twice the accumulation (the
         same global batch) on a model rebuilt from its initial or resumed
         weights (train.py:314-399). In one process the retry follows an
-        out-of-memory error at any step. Over several ranks (DDP; FSDP2 and
-        the ``model`` axis are refused by ``check_scope``) every rank
-        probes its memory before the first update and the ranks halve
-        together (``_probe``); an out-of-memory error after the probe
-        raises. Any other error is raised."""
+        out-of-memory error at any step. Over several ranks (DDP or FSDP2
+        over ``data``, with or without a ``model`` axis) every rank probes
+        its memory before the first update and the ranks halve together
+        (``_probe``); an out-of-memory error after the probe raises. Any
+        other error is raised."""
         t = self.cfg.training
         world = pdist.world_size()
         retry = False
@@ -274,17 +280,21 @@ class ModelTrainer:
         ranks: one decision that every rank takes, with no rank left
         waiting in a collective.
 
-        Each rank runs ``Trainer.probe_step`` (forward and backward, the
-        gradient sync off, the base phase's trainable set, optimizer state
-        and gradient buckets) on its first micro-batch with the labels made
-        the longest the collator can give (``probe_batch``):
-        generation_max_length rounded up to the collator's multiple, every
-        column a text token.
-        No real micro-batch can exceed it: the rows are as many, the
-        features always 30 s windows (and the enrollments of SE-DiCoW
-        too), and the labels' width, the decoder's length and the CTC
-        targets' length are the only shapes that vary, each at its maximum
-        here. The probe catches any exception; then one MAX all-reduce
+        Each rank runs ``Trainer.probe_step`` (forward and backward through
+        the wrapper with no collective: the DDP gradient sync off, FSDP2's
+        all-gathers and reduce-scatters and the tensor-parallel all-reduces
+        replaced by allocations of their size; the base phase's trainable
+        set, optimizer state and gradient buckets) on its first micro-batch
+        with the labels made the longest the collator can give
+        (``probe_batch``): generation_max_length rounded up to the
+        collator's multiple, every column a text token. No real micro-batch
+        can exceed it: the rows are as many, the features always 30 s
+        windows (and the enrollments of SE-DiCoW too), and the labels'
+        width, the decoder's length and the CTC targets' length are the
+        only shapes that vary, each at its maximum here. The communicators
+        of the ``data`` and ``model`` groups are used once before the
+        probe's peak is reset, so that their buffers are in place as in
+        training. The probe catches any exception; then one MAX all-reduce
         (on the host) of every rank's status (``FITS``, ``OUT_OF_MEMORY``,
         ``FAILED``): on ``FITS`` every rank trains on its batches, the
         first one included (returned); on ``OUT_OF_MEMORY`` every rank
@@ -295,6 +305,11 @@ class ModelTrainer:
         it = iter(batches)
         first = next(it)
         width = max(self.probe_width(), np.asarray(first["labels"]).shape[1])
+        mesh = trainer.mesh
+        for axis in (DATA_AXIS, MODEL_AXIS):
+            group = axis_group(mesh, axis)
+            if group is not None:
+                all_reduce_sum(torch.zeros(1, device=trainer.device), group)
         error, t0 = None, time.perf_counter()
         cuda = trainer.device.type == "cuda"
         if cuda:
@@ -313,9 +328,11 @@ class ModelTrainer:
             gib = torch.cuda.max_memory_allocated(trainer.device) / 2**30
             peak = f", peak {gib:.2f} GiB"
         logger.info("auto_find_batch_size probe at per-device batch %d, "
-                    "labels %d wide: %s in %.0f ms%s",
+                    "labels %d wide, mesh (data %d, model %d), "
+                    "shard_params %s: %s in %.0f ms%s",
                     t.per_device_train_batch_size, width,
-                    ("fits", "out of memory", "failed")[status],
+                    axis_size(mesh, DATA_AXIS), axis_size(mesh, MODEL_AXIS),
+                    t.shard_params, ("fits", "out of memory", "failed")[status],
                     (time.perf_counter() - t0) * 1e3, peak)
         codes = torch.zeros(pdist.world_size(), dtype=torch.int64)
         codes[pdist.get_rank()] = status

@@ -51,8 +51,9 @@ from ..models.dicow import DiCoW
 from ..models.losses import dicow_loss
 from ..parallel import dist as pdist
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_reduce_sum,
-                             axis_group, axis_size, local, make_mesh,
-                             release, shard_group, unwrap, wrap_model)
+                             axis_group, axis_size, local, local_collectives,
+                             make_mesh, release, shard_group, unwrap,
+                             wrap_model)
 from ..parallel.tensor import shard_model_, sync_whole_grads, tp_dim
 from ..utils.logging_def import get_logger
 from ..utils.observability import (MetricsLogger, global_norm,
@@ -85,7 +86,8 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
 
 def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
             batch: Dict[str, torch.Tensor], num_prefix_tokens: int,
-            mesh=None):
+            mesh=None, n_tokens: Optional[torch.Tensor] = None,
+            world: int = 1):
     """Teacher-forced forward and the joint loss (trainer.py:59-82), with
     SE-DiCoW's enrollment features and STNO when the batch carries them.
     LoRA adapters merge in each adapted projection's call
@@ -93,7 +95,10 @@ def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
     ``model`` may be a DDP / FSDP2 wrapper over the ``data`` axis of
     ``mesh``: the CTC head runs on the wrapped model, in the same backward,
     and the loss and its parts are this data coordinate's shares of the
-    global batch's (one all-reduce of the token count over ``data``)."""
+    global batch's (one all-reduce of the token count over ``data``).
+    Without ``mesh``, ``n_tokens`` and ``world`` give those shares where
+    the caller knows them: the global batch's token count and the number
+    of equal blocks of rows it is taken in."""
     labels = batch["labels"].long()
     dec_in = shift_tokens_right(labels, model_cfg.pad_token_id,
                                 model_cfg.decoder_start_token_id)
@@ -103,7 +108,6 @@ def loss_fn(model: DiCoW, model_cfg: DiCoWConfig,
     enc_logits = None
     if model_cfg.ctc_weight > 0.0:
         enc_logits = unwrap(model).encoder.ctc_logits(enc_hidden)
-    n_tokens, world = None, 1
     if mesh is not None:
         world = axis_size(mesh, DATA_AXIS)
         n_tokens = all_reduce_sum((labels != -100).sum().float(),
@@ -284,16 +288,20 @@ class Trainer:
 
     def probe_step(self, batch: Dict[str, torch.Tensor]) -> None:
         """Forward and backward of one micro-batch through the wrapper
-        with no update and no collective: under DDP the gradient sync off
-        (``no_sync``) and the token count local. The memory held is the
-        base phase's, the larger: its trainable set, optimizer state and,
-        under DDP, gradient buckets (in the preheat phase the base
-        optimizer is built for the probe, with a flat buffer of its
-        parameters' size for the base wrapper's buckets, and the preheat
-        optimizer built again after it, as it was before any update). The
-        gradients are dropped. For ``auto_find_batch_size`` over several
-        DDP ranks (train.py) and the micro-batch ceiling of one card
-        (scripts/probe_train_batch.py)."""
+        with no update and no collective, so that a rank can fail in it
+        without leaving a peer waiting: the token count local, under DDP
+        the gradient sync off (``no_sync``), and every FSDP2 all-gather and
+        reduce-scatter and every tensor-parallel all-reduce replaced by an
+        allocation of the same size (``parallel/mesh.py::
+        local_collectives``), so that the probe holds what a training step
+        holds. The memory held is the base phase's, the larger: its
+        trainable set, optimizer state and, under DDP, gradient buckets (in
+        the preheat phase the base optimizer is built for the probe, with a
+        flat buffer of its parameters' size for the base wrapper's buckets,
+        and the preheat optimizer built again after it, as it was before
+        any update). The gradients are dropped. For
+        ``auto_find_batch_size`` over several ranks (train.py) and the
+        micro-batch ceiling of one card (scripts/probe_train_batch.py)."""
         preheat = self.state.phase == "preheat"
         ddp = hasattr(self.wrapped, "no_sync")
         buckets = None
@@ -306,7 +314,9 @@ class Trainer:
                         sum(p.numel() * p.element_size()
                             for p in self.tx.params),
                         dtype=torch.uint8, device=self.device)
-            with self.wrapped.no_sync() if ddp else contextlib.nullcontext():
+            with local_collectives(self.model), (
+                    self.wrapped.no_sync() if ddp
+                    else contextlib.nullcontext()):
                 total, _ = loss_fn(self.wrapped, self.model_cfg, batch,
                                    self.num_prefix_tokens)
                 total.backward()
