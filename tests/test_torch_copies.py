@@ -50,7 +50,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ts_asr_whisper_tpu_torch"
 JAXPKG = REPO / "ts_asr_whisper_tpu"
 # modules copied unchanged (their text equals the source's once the package
-# names are made the same)
+# names are made the same, and the spans of TRACE_EDITS are put in)
 UNCHANGED_COPIES = (
     "data/audio.py", "data/manifests.py", "data/notsofar.py", "data/stno.py",
     "data/collators.py", "data/augmentations.py", "data/tokenizer.py",
@@ -454,9 +454,41 @@ def _doc_edited(text: str) -> str:
     return text
 
 
+# the port's spans (utils/observability.py) in an unchanged copy: each
+# (source text, copy's text) pair, found once in the source, is the copy's
+# only change from it
+TRACE_EDITS = {"training/dataloader.py": (
+    ("the standard TPU host-overlap pattern.\n",
+     "the standard TPU host-overlap pattern.\n\n"
+     "Traced (utils/observability.py): each worker's batch is a "
+     "``loader.batch``\nspan, the consumer's wait for one a ``loader.wait`` "
+     "span, and each batch of\n``eval_batches`` a ``data.eval_batch`` "
+     "span.\n"),
+    ("import numpy as np\n",
+     "import numpy as np\n\nfrom ..utils.observability import span\n"),
+    ("            samples = [self.dataset[i] for i in batch_idx]\n"
+     "            return self.collate_fn(samples)\n",
+     "            with span(\"loader.batch\"):\n"
+     "                samples = [self.dataset[i] for i in batch_idx]\n"
+     "                return self.collate_fn(samples)\n"),
+    ("                item = q.get()\n",
+     "                with span(\"loader.wait\"):\n"
+     "                    item = q.get()\n"),
+    ("        samples = [dataset[j] for j in idx]\n"
+     "        yield bi, collate_fn(samples)\n",
+     "        with span(\"data.eval_batch\"):\n"
+     "            samples = [dataset[j] for j in idx]\n"
+     "            batch = collate_fn(samples)\n"
+     "        yield bi, batch\n"),
+)}
+
+
 @pytest.mark.parametrize("rel", UNCHANGED_COPIES)
 def test_unchanged_copy_equals_its_source(rel):
     src = _doc_edited((JAXPKG / rel).read_text())
+    for old, new in TRACE_EDITS.get(rel, ()):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
     out = (PORT / rel).read_text().replace("ts_asr_whisper_tpu_torch",
                                            "ts_asr_whisper_tpu")
     assert out == src

@@ -253,7 +253,7 @@ class TrainingConfig:
     mesh_shape: Optional[List[int]] = None   # None -> (n_devices,)
     mesh_axis_names: List[str] = field(default_factory=lambda: ["data"])
     shard_params: bool = False               # ZeRO-like param sharding over 'data'
-    profile_dir: Optional[str] = None        # jax.profiler trace output
+    profile_dir: Optional[str] = None        # torch.profiler trace output
 
 
 @dataclass

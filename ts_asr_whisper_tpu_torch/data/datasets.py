@@ -7,7 +7,9 @@ A copy of ts_asr_whisper_tpu/data/datasets.py:29-30, 39-40, 43-578
 ``TS_ASR_DatasetSuperclass`` methods with the enrollment selection,
 ``TS_ASR_Dataset``, ``LhotseLongFormDataset``, ``load_cutsets``,
 ``build_datasets``). That module imports the jax log-mel module at the top;
-only the imports differ here, and the featurizer is the port's numpy copy.
+only the imports differ here, the featurizer is the port's numpy copy, and
+``get_features`` is a ``data.features`` span and counts ``data.mel_calls``
+(utils/observability.py).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from ..utils.logging_def import get_logger
+from ..utils.observability import count, span
 from .features import extract_features
 from .manifests import Cut, CutSet, MixTrack, MixedCut, MonoCut, load_manifest
 from .stno import create_stno_mask, downsample_speaker_mask
@@ -169,17 +172,19 @@ class TS_ASR_DatasetSuperclass:
         return create_stno_mask(spk_mask, s_index)
 
     def get_features(self, cut: Cut):
-        if self.load_channel_zero_only:
-            samples = cut.load_audio(channels=[0])
-        else:
-            samples = cut.load_audio()
-        samples = samples.squeeze()
-        if samples.ndim > 1:  # signal sum over channels
-            samples = samples.sum(axis=0)
-        if (self.musan_augment is not None
-                and np.random.rand() < self.musan_augment_prob):
-            samples = self.musan_augment(samples)
-        return extract_features(samples, self.num_mel_bins)
+        count("data.mel_calls")
+        with span("data.features"):
+            if self.load_channel_zero_only:
+                samples = cut.load_audio(channels=[0])
+            else:
+                samples = cut.load_audio()
+            samples = samples.squeeze()
+            if samples.ndim > 1:  # signal sum over channels
+                samples = samples.sum(axis=0)
+            if (self.musan_augment is not None
+                    and np.random.rand() < self.musan_augment_prob):
+                samples = self.musan_augment(samples)
+            return extract_features(samples, self.num_mel_bins)
 
     # -- enrollment selection (SE-DiCoW) ------------------------------------
     @staticmethod

@@ -2,7 +2,8 @@
 
 Counterpart of ts_asr_whisper_tpu/decoding/greedy.py: the
 ``lax.while_loop`` becomes a Python loop over a preallocated token buffer
-that stops once every row has emitted EOS (one host sync per step). Cross-
+that stops once every row has emitted EOS (one host sync per step, the
+``greedy.stop_check`` span beside each step's ``greedy.step``). Cross-
 attention K/V are computed once per window (int8 under
 ``gen_cfg.cross_kv_quant``); the self-attention cache is written in place.
 With a CTC rescorer (decoding/ctc_rescorer.py) the joint CTC scores join the
@@ -20,6 +21,7 @@ import torch
 
 from ..models.dicow import DiCoW
 from ..models.whisper import quantize_cross_kv
+from ..utils.observability import count, span
 from .generation_config import GenerationConfig
 from .logits_process import make_logits_processor
 
@@ -98,36 +100,43 @@ def greedy_decode(
     cur_len = prompt_len
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     sum_logprobs = torch.zeros(b, dtype=torch.float32, device=dev)
-    while cur_len < total_len and (force_full_length
-                                   or not bool(finished.all())):
-        scores = process(logits, tokens, cur_len)
-        if ctc_scorer is not None:
-            scores = torch.log_softmax(scores, dim=-1)
-            scores, ctc_state = ctc_scorer.rescore(ctc_state, tokens,
-                                                   cur_len, scores)
-        if temperature > 0.0:
-            next_tok = sample(scores, temperature, generator)
-        else:
-            next_tok = scores.argmax(dim=-1)
-        next_tok = torch.where(finished, pad, next_tok)
-        logp = torch.log_softmax(scores, dim=-1)
-        tok_logp = logp.gather(1, next_tok[:, None])[:, 0]
-        sum_logprobs += torch.where(finished, 0.0, tok_logp)
-        if ctc_scorer is not None:
-            ctc_state = ctc_scorer.update_state(ctc_state, next_tok, None)
-        tokens[:, cur_len] = next_tok
-        finished |= next_tok == eos
-        if align_buf is None:
-            hidden = dec.decoder_cached(next_tok[:, None], cur_len, cache,
-                                        cross_kv)
-        else:
-            hidden, probs = dec.decoder_cached(
-                next_tok[:, None], cur_len, cache, cross_kv,
-                alignment_slots=alignment_slots)
-            # the query row of position cur_len (generated token
-            # cur_len - prompt_len)
-            align_buf[:, :, cur_len - prompt_len] = probs[:, :, 0]
-        logits = dec.lm_logits(hidden[:, -1], w_logits)
+    while cur_len < total_len:
+        if not force_full_length:
+            # the step's one host sync: wait for the last step's tokens
+            with span("greedy.stop_check"):
+                done = bool(finished.all())
+            if done:
+                break
+        with span("greedy.step"):
+            scores = process(logits, tokens, cur_len)
+            if ctc_scorer is not None:
+                scores = torch.log_softmax(scores, dim=-1)
+                scores, ctc_state = ctc_scorer.rescore(ctc_state, tokens,
+                                                       cur_len, scores)
+            if temperature > 0.0:
+                next_tok = sample(scores, temperature, generator)
+            else:
+                next_tok = scores.argmax(dim=-1)
+            next_tok = torch.where(finished, pad, next_tok)
+            logp = torch.log_softmax(scores, dim=-1)
+            tok_logp = logp.gather(1, next_tok[:, None])[:, 0]
+            sum_logprobs += torch.where(finished, 0.0, tok_logp)
+            if ctc_scorer is not None:
+                ctc_state = ctc_scorer.update_state(ctc_state, next_tok, None)
+            tokens[:, cur_len] = next_tok
+            finished |= next_tok == eos
+            if align_buf is None:
+                hidden = dec.decoder_cached(next_tok[:, None], cur_len, cache,
+                                            cross_kv)
+            else:
+                hidden, probs = dec.decoder_cached(
+                    next_tok[:, None], cur_len, cache, cross_kv,
+                    alignment_slots=alignment_slots)
+                # the query row of position cur_len (generated token
+                # cur_len - prompt_len)
+                align_buf[:, :, cur_len - prompt_len] = probs[:, :, 0]
+            logits = dec.lm_logits(hidden[:, -1], w_logits)
+        count("greedy.steps")
         cur_len += 1
 
     # valid length = prompt + tokens up to and including the first EOS

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.dicow import DiCoW
+from ..utils.observability import count, span
 from .beam import beam_search
 from .ctc_rescorer import CTCRescorer, init_ctc_state
 from .generation_config import GenerationConfig
@@ -395,6 +396,18 @@ def longform_generate(
     LongformOutput whose ``sequences`` carry re-blocked 0-30 s timestamps
     (ready for the SegLST parser); with ``gen_cfg.return_token_timestamps``
     its segments carry per-token times."""
+    with span("decode.longform"):
+        return _seek_loop(
+            model, gen_cfg, input_features, stno_mask, attention_mask,
+            forced_decoder_ids, enroll_features, enroll_stno,
+            return_segments, detect_lang, upper_to_lower,
+            token_ts_num_frames)
+
+
+def _seek_loop(model, gen_cfg, input_features, stno_mask, attention_mask,
+               forced_decoder_ids, enroll_features, enroll_stno,
+               return_segments, detect_lang, upper_to_lower,
+               token_ts_num_frames) -> LongformOutput:
     check_scope(gen_cfg)
     cfg = model.cfg
     dev = next(model.parameters()).device
@@ -416,18 +429,20 @@ def longform_generate(
             gen_cfg.alignment_heads, cfg.decoder_layers,
             cfg.decoder_attention_heads), device=dev)
 
-    # full recordings on the device for the whole call, zero-padded by one
-    # window so that every seek slice is in bounds
-    feats_dev = F.pad(torch.as_tensor(input_features, dtype=torch.float32),
-                      (0, nsf)).to(dev)
-    stno_dev = F.pad(torch.as_tensor(stno_mask, dtype=torch.float32),
-                     (0, nsf // 2)).to(dev)
-    # SE-DiCoW: the same enrollment window rides every seek window of its
-    # row (longform.py:422-425, 482-490)
-    enroll = ()
-    if enroll_features is not None:
-        enroll = tuple(torch.as_tensor(x, dtype=torch.float32).to(dev)
-                       for x in (enroll_features, enroll_stno))
+    with span("seek.upload"):
+        # full recordings on the device for the whole call, zero-padded by
+        # one window so that every seek slice is in bounds
+        feats_dev = F.pad(torch.as_tensor(input_features,
+                                          dtype=torch.float32),
+                          (0, nsf)).to(dev)
+        stno_dev = F.pad(torch.as_tensor(stno_mask, dtype=torch.float32),
+                         (0, nsf // 2)).to(dev)
+        # SE-DiCoW: the same enrollment window rides every seek window of
+        # its row (longform.py:422-425, 482-490)
+        enroll = ()
+        if enroll_features is not None:
+            enroll = tuple(torch.as_tensor(x, dtype=torch.float32).to(dev)
+                           for x in (enroll_features, enroll_stno))
 
     if detect_lang and gen_cfg.lang_ids:
         meta0 = np.stack([
@@ -442,30 +457,39 @@ def longform_generate(
         forced_decoder_ids = np.asarray(forced_decoder_ids).copy()
         forced_decoder_ids[:, 1] = langs
 
-    forced_dev = torch.as_tensor(np.asarray(forced_decoder_ids),
-                                 dtype=torch.long).to(dev)
+    with span("seek.upload"):
+        forced_dev = torch.as_tensor(np.asarray(forced_decoder_ids),
+                                     dtype=torch.long).to(dev)
 
     windows_decoded = 0
     while (seek < max_frames).any():
-        active_idx = np.where(seek < max_frames)[0]
-        windows_decoded += len(active_idx)
-        bucket = _next_pow2(len(active_idx), b)
-        rows = np.concatenate(
-            [active_idx,
-             np.full(bucket - len(active_idx), active_idx[0], np.int64)])
-        active = np.zeros(b, dtype=bool)
-        active[active_idx] = True
+        with span("seek.slice"):
+            active_idx = np.where(seek < max_frames)[0]
+            windows_decoded += len(active_idx)
+            bucket = _next_pow2(len(active_idx), b)
+            rows = np.concatenate(
+                [active_idx, np.full(bucket - len(active_idx),
+                                     active_idx[0], np.int64)])
+            active = np.zeros(b, dtype=bool)
+            active[active_idx] = True
 
-        seek_num_frames = np.maximum(np.minimum(max_frames - seek, nsf), 0)
-        seek_rows = seek[rows]
-        n_stno = np.clip(max_frames[rows] // 2 - seek_rows // 2, 0, nsf // 2)
-        meta = np.stack([rows, seek_rows, seek_num_frames[rows], n_stno])
-        window, stno_window = slice_windows(feats_dev, stno_dev, meta, nsf)
-        rows_dev = torch.as_tensor(rows, device=dev)
-        forced_rows = forced_dev[rows_dev]
+            seek_num_frames = np.maximum(
+                np.minimum(max_frames - seek, nsf), 0)
+            seek_rows = seek[rows]
+            n_stno = np.clip(max_frames[rows] // 2 - seek_rows // 2, 0,
+                             nsf // 2)
+            meta = np.stack([rows, seek_rows, seek_num_frames[rows],
+                             n_stno])
+            window, stno_window = slice_windows(feats_dev, stno_dev, meta,
+                                                nsf)
+            rows_dev = torch.as_tensor(rows, device=dev)
+            forced_rows = forced_dev[rows_dev]
+            enroll_rows = tuple(x[rows_dev] for x in enroll)
+        count("seek.bucket_rows", bucket)
+        count("seek.active_rows", len(active_idx))
 
-        enc = model.encoder(window, stno_window,
-                            *(x[rows_dev] for x in enroll))
+        with span("seek.encoder"):
+            enc = model.encoder(window, stno_window, *enroll_rows)
 
         ctc_scorer = ctc_state = None
         if gen_cfg.ctc_weight > 0:
@@ -480,35 +504,40 @@ def longform_generate(
                 enc_logits, blank, upper_to_lower,
                 num_beams=max(gen_cfg.num_beams, 1), k=ctc_scorer.k,
                 p_bf16=gen_cfg.ctc_p_bf16, psi_impl=gen_cfg.ctc_psi_impl)
-        if gen_cfg.num_beams > 1:
-            out = beam_search(model, gen_cfg, enc, forced_rows, max_new,
-                              gen_cfg.num_beams, ctc_scorer, ctc_state)
-            # beam: the length-penalized score is the logprob value
-            # (longform.py:562-571, HF _need_fallback's beam branch)
-            lp_value = out.scores
-        else:
-            out = greedy_decode(model, gen_cfg, enc, forced_rows, max_new,
-                                ctc_scorer=ctc_scorer, ctc_state=ctc_state,
-                                alignment_slots=alignment_slots)
-            lp_value = out.sum_logprobs
+        with span("seek.decode"):
+            if gen_cfg.num_beams > 1:
+                out = beam_search(model, gen_cfg, enc, forced_rows,
+                                  max_new, gen_cfg.num_beams, ctc_scorer,
+                                  ctc_state)
+                # beam: the length-penalized score is the logprob value
+                # (longform.py:562-571, HF _need_fallback's beam branch)
+                lp_value = out.scores
+            else:
+                out = greedy_decode(model, gen_cfg, enc, forced_rows,
+                                    max_new, ctc_scorer=ctc_scorer,
+                                    ctc_state=ctc_state,
+                                    alignment_slots=alignment_slots)
+                lp_value = out.sum_logprobs
 
-        sequences = np.zeros((b, out.sequences.shape[1]), dtype=np.int64)
-        lengths = np.zeros(b, dtype=np.int64)
-        lp_values = np.zeros(b, dtype=np.float64)
-        no_speech = np.zeros(b, dtype=np.float64)
-        weights = None
-        if alignment_slots is not None:
-            weights = np.zeros(
-                (b, *out.alignment_weights.shape[1:]), np.float32)
-        for i, seq, n, lp, ns, w in _fetch(out, lp_value, rows):
-            sequences[i], lengths[i], lp_values[i], no_speech[i] = \
-                seq, n, lp, ns
-            if w is not None:
-                weights[i] = w
-        if gen_cfg.num_beams > 1:
-            avg_lp = lp_values
-        else:
-            avg_lp = lp_values / np.maximum(lengths - prompt_len, 1)
+        with span("seek.fetch"):
+            sequences = np.zeros((b, out.sequences.shape[1]),
+                                 dtype=np.int64)
+            lengths = np.zeros(b, dtype=np.int64)
+            lp_values = np.zeros(b, dtype=np.float64)
+            no_speech = np.zeros(b, dtype=np.float64)
+            weights = None
+            if alignment_slots is not None:
+                weights = np.zeros(
+                    (b, *out.alignment_weights.shape[1:]), np.float32)
+            for i, seq, n, lp, ns, w in _fetch(out, lp_value, rows):
+                sequences[i], lengths[i], lp_values[i], no_speech[i] = \
+                    seq, n, lp, ns
+                if w is not None:
+                    weights[i] = w
+            if gen_cfg.num_beams > 1:
+                avg_lp = lp_values
+            else:
+                avg_lp = lp_values / np.maximum(lengths - prompt_len, 1)
 
         def skip_mask() -> np.ndarray:
             # no-speech skip (HF _need_fallback): silence iff the SOT-step
@@ -534,67 +563,78 @@ def longform_generate(
                     enc_logits, blank, upper_to_lower, num_beams=1,
                     k=ctc_scorer.k)
             for t_i, temp in enumerate(temps[1:], start=1):
-                skip_now = skip_mask()
-                needs = np.zeros(b, dtype=bool)
-                for i in np.unique(rows):
-                    if skip_now[i]:
-                        continue
-                    needs[i] = _needs_fallback(
-                        sequences[i, prompt_len: int(lengths[i])],
-                        avg_lp[i], gen_cfg, cfg.vocab_size)
+                with span("seek.segments"):
+                    skip_now = skip_mask()
+                    needs = np.zeros(b, dtype=bool)
+                    for i in np.unique(rows):
+                        if skip_now[i]:
+                            continue
+                        needs[i] = _needs_fallback(
+                            sequences[i, prompt_len: int(lengths[i])],
+                            avg_lp[i], gen_cfg, cfg.vocab_size)
                 if not needs.any():
                     break
-                gen = torch.Generator(device=dev).manual_seed(
-                    int(seek.sum()) + t_i)
-                retry = greedy_decode(
-                    model, gen_cfg, enc, forced_rows, max_new,
-                    ctc_scorer=ctc_scorer, ctc_state=ctc_state_retry,
-                    temperature=float(temp), generator=gen,
-                    alignment_slots=alignment_slots)
-                for i, seq, n, lp, ns, w in _fetch(
-                        retry, retry.sum_logprobs, rows):
-                    if not needs[i]:
-                        continue
-                    sequences[i], lengths[i], no_speech[i] = seq, n, ns
-                    # fp32 sum over an int, as the JAX package divides
-                    avg_lp[i] = np.float32(lp) / max(n - prompt_len, 1)
-                    if w is not None:
-                        weights[i] = w
+                with span("seek.decode"):
+                    gen = torch.Generator(device=dev).manual_seed(
+                        int(seek.sum()) + t_i)
+                    retry = greedy_decode(
+                        model, gen_cfg, enc, forced_rows, max_new,
+                        ctc_scorer=ctc_scorer, ctc_state=ctc_state_retry,
+                        temperature=float(temp), generator=gen,
+                        alignment_slots=alignment_slots)
+                with span("seek.fetch"):
+                    for i, seq, n, lp, ns, w in _fetch(
+                            retry, retry.sum_logprobs, rows):
+                        if not needs[i]:
+                            continue
+                        sequences[i], lengths[i], no_speech[i] = \
+                            seq, n, ns
+                        # fp32 sum over an int, as the JAX package
+                        # divides
+                        avg_lp[i] = (np.float32(lp)
+                                     / max(n - prompt_len, 1))
+                        if w is not None:
+                            weights[i] = w
 
-        skip_silence = skip_mask()
+        with span("seek.segments"):
+            skip_silence = skip_mask()
 
-        token_ts = None
-        if weights is not None:
-            # HF extracts per seek window over the active rows, with
-            # num_frames = the caller's num_frames - seek
-            act = np.where(active)[0]
-            nf = None
-            if token_ts_num_frames is not None:
-                nf = (np.asarray(token_ts_num_frames, np.int64) - seek)[act]
-            ts_rows = extract_token_timestamps(
-                weights[act], prompt_len, lengths[act], num_frames=nf,
-                median_filter_width=gen_cfg.median_filter_width)
-            token_ts = {int(i): ts_rows[k] for k, i in enumerate(act)}
+            token_ts = None
+            if weights is not None:
+                # HF extracts per seek window over the active rows,
+                # with num_frames = the caller's num_frames - seek
+                act = np.where(active)[0]
+                nf = None
+                if token_ts_num_frames is not None:
+                    nf = (np.asarray(token_ts_num_frames, np.int64)
+                          - seek)[act]
+                ts_rows = extract_token_timestamps(
+                    weights[act], prompt_len, lengths[act],
+                    num_frames=nf,
+                    median_filter_width=gen_cfg.median_filter_width)
+                token_ts = {int(i): ts_rows[k]
+                            for k, i in enumerate(act)}
 
-        for i in range(b):
-            if not active[i]:
-                continue
-            if skip_silence[i]:
-                seek[i] += int(seek_num_frames[i])
-                continue
-            seq = sequences[i, prompt_len: lengths[i]]
-            # strip trailing eos/pad
-            while len(seq) and seq[-1] in (gen_cfg.eos_token_id,
-                                           gen_cfg.pad_token_id):
-                seq = seq[:-1]
-            time_offset = float(seek[i]) * TIME_PRECISION / INPUT_STRIDE
-            segments, offset = retrieve_segment(
-                seq, ts_begin, int(seek_num_frames[i]), time_offset,
-                token_timestamps=(token_ts[i] if token_ts is not None
-                                  else None),
-                prompt_len=prompt_len)
-            all_segments[i].extend(segments)
-            seek[i] += offset
+            for i in range(b):
+                if not active[i]:
+                    continue
+                if skip_silence[i]:
+                    seek[i] += int(seek_num_frames[i])
+                    continue
+                seq = sequences[i, prompt_len: lengths[i]]
+                # strip trailing eos/pad
+                while len(seq) and seq[-1] in (gen_cfg.eos_token_id,
+                                               gen_cfg.pad_token_id):
+                    seq = seq[:-1]
+                time_offset = (float(seek[i]) * TIME_PRECISION
+                               / INPUT_STRIDE)
+                segments, offset = retrieve_segment(
+                    seq, ts_begin, int(seek_num_frames[i]), time_offset,
+                    token_timestamps=(token_ts[i] if token_ts is not None
+                                      else None),
+                    prompt_len=prompt_len)
+                all_segments[i].extend(segments)
+                seek[i] += offset
 
     sequences = fix_timestamps_from_segmentation(
         all_segments, ts_begin, gen_cfg.pad_token_id)

@@ -4,6 +4,10 @@ Replaces torch DataLoader workers (the reference's dataloader_num_workers /
 prefetch_factor knobs, configs/base.yaml:58-60). Feature extraction and
 collation run in a thread pool while the device executes the previous step —
 the standard TPU host-overlap pattern.
+
+Traced (utils/observability.py): each worker's batch is a ``loader.batch``
+span, the consumer's wait for one a ``loader.wait`` span, and each batch of
+``eval_batches`` a ``data.eval_batch`` span.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ import threading
 from typing import Callable, Iterator, List, Optional
 
 import numpy as np
+
+from ..utils.observability import span
 
 
 class DataLoader:
@@ -103,8 +109,9 @@ class DataLoader:
         stop = threading.Event()
 
         def make_batch(batch_idx):
-            samples = [self.dataset[i] for i in batch_idx]
-            return self.collate_fn(samples)
+            with span("loader.batch"):
+                samples = [self.dataset[i] for i in batch_idx]
+                return self.collate_fn(samples)
 
         def producer():
             try:
@@ -131,7 +138,8 @@ class DataLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with span("loader.wait"):
+                    item = q.get()
                 if item is None:
                     break
                 if isinstance(item, BaseException):
@@ -254,5 +262,7 @@ def eval_batches(dataset, collate_fn: Callable, batch_size: int,
         idx = list(range(i, min(i + batch_size, n)))
         if pad_to_full and len(idx) < batch_size and n > 0:
             idx = idx + [idx[-1]] * (batch_size - len(idx))
-        samples = [dataset[j] for j in idx]
-        yield bi, collate_fn(samples)
+        with span("data.eval_batch"):
+            samples = [dataset[j] for j in idx]
+            batch = collate_fn(samples)
+        yield bi, batch

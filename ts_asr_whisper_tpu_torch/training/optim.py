@@ -41,7 +41,7 @@ from torch import nn
 from ..config import TrainingConfig
 from ..parallel.mesh import local
 from ..parallel.tensor import tp_dim
-from ..utils.observability import global_norm
+from ..utils.observability import global_norm, span
 
 LABELS = ("preheat", "base")  # the labels that train
 
@@ -154,33 +154,35 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        cfg = self.cfg
-        b1, b2, eps, wd = (cfg.adam_beta1, cfg.adam_beta2, cfg.adam_epsilon,
-                           cfg.weight_decay)
-        g_norm = global_norm(grads, self.group, self.sharded, self.tp_group)
-        clip = not bool(g_norm < cfg.max_grad_norm)
-        count_inc = self.count + 1
-        # optax computes the bias corrections in fp32
-        f32 = torch.float32
-        bc1 = float(1 - torch.tensor(b1, dtype=f32) ** count_inc)
-        bc2 = float(1 - torch.tensor(b2, dtype=f32) ** count_inc)
-        i = 0
-        for label in LABELS:
-            lr = float(torch.tensor(self.schedules[label](self.count),
-                                    dtype=f32))
-            for _ in self.groups.get(label, ()):
-                p, g = self.local[i], grads[i].float()
-                if clip:
-                    g = (g / g_norm.to(g.device)) * cfg.max_grad_norm
-                mu = (1 - b1) * g + b1 * self.mu[i].float()
-                nu = (1 - b2) * g * g + b2 * self.nu[i]
-                upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-                upd = upd + wd * p
-                p.add_((-lr * upd).to(p.dtype))
-                self.mu[i] = mu.to(self.mu[i].dtype)
-                self.nu[i] = nu
-                i += 1
-        self.count = count_inc
+        with span("train.optimizer"):
+            cfg = self.cfg
+            b1, b2, eps, wd = (cfg.adam_beta1, cfg.adam_beta2,
+                               cfg.adam_epsilon, cfg.weight_decay)
+            g_norm = global_norm(grads, self.group, self.sharded,
+                                 self.tp_group)
+            clip = not bool(g_norm < cfg.max_grad_norm)
+            count_inc = self.count + 1
+            # optax computes the bias corrections in fp32
+            f32 = torch.float32
+            bc1 = float(1 - torch.tensor(b1, dtype=f32) ** count_inc)
+            bc2 = float(1 - torch.tensor(b2, dtype=f32) ** count_inc)
+            i = 0
+            for label in LABELS:
+                lr = float(torch.tensor(self.schedules[label](self.count),
+                                        dtype=f32))
+                for _ in self.groups.get(label, ()):
+                    p, g = self.local[i], grads[i].float()
+                    if clip:
+                        g = (g / g_norm.to(g.device)) * cfg.max_grad_norm
+                    mu = (1 - b1) * g + b1 * self.mu[i].float()
+                    nu = (1 - b2) * g * g + b2 * self.nu[i]
+                    upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+                    upd = upd + wd * p
+                    p.add_((-lr * upd).to(p.dtype))
+                    self.mu[i] = mu.to(self.mu[i].dtype)
+                    self.nu[i] = nu
+                    i += 1
+            self.count = count_inc
 
 
 class MultiSteps:
@@ -202,8 +204,9 @@ class MultiSteps:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
         n = self.mini_step
-        for a, g in zip(self.acc, grads):
-            a.add_((g.float() - a) / (n + 1))
+        with span("train.optimizer"):
+            for a, g in zip(self.acc, grads):
+                a.add_((g.float() - a) / (n + 1))
         if n == self.k - 1:
             self.inner.step(self.acc)
             for a in self.acc:

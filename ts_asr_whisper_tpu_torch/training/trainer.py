@@ -57,7 +57,7 @@ from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_reduce_sum,
 from ..parallel.tensor import shard_model_, sync_whole_grads, tp_dim
 from ..utils.logging_def import get_logger
 from ..utils.observability import (MetricsLogger, global_norm,
-                                   module_grad_norms, start_trace,
+                                   module_grad_norms, span, start_trace,
                                    stop_trace)
 from .lora import init_lora, lora_linears
 from .optim import build_optimizer
@@ -250,41 +250,49 @@ class Trainer:
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """Forward, backward and the optimizer's step on one micro-batch.
         Returns the loss parts and the micro-batch's gradient norm as
-        0-d tensors (read only when logged)."""
-        params = self.tx.params
-        for p in params:
-            p.grad = None
-        total, parts = loss_fn(self.wrapped, self.model_cfg, batch,
-                               self.num_prefix_tokens, self.mesh)
-        # DDP and FSDP2 average the gradients over the data group: the sum
-        # of the shares' gradients is the global batch's
-        (total * axis_size(self.mesh, DATA_AXIS)).backward()
-        if self.tp_group is not None:
-            # the whole tensors' gradients alike on every model rank; the
-            # LoRA adapters' summed (each rank's rows of B A)
-            whole = [(n, p) for n, p in self.model.named_parameters()
-                     if p.grad is not None and tp_dim(n) is None]
-            sync_whole_grads([local(p.grad) for _, p in whole],
-                             [n.endswith(("lora_A", "lora_B"))
-                              for n, _ in whole], self.tp_group)
-        grads = [local(p.grad) if p.grad is not None
-                 else torch.zeros_like(local(p)) for p in params]
-        parts = {k: v.detach() for k, v in parts.items()}
-        inner = getattr(self.tx, "inner", self.tx)  # under MultiSteps
-        parts["grad_norm"] = global_norm(grads, self.shard_group,
-                                         inner.sharded, self.tp_group)
-        if self.cfg.training.watch_grads:
-            # keyed as the JAX trainer's grad_norm/<encoder|decoder>/<module>
-            # and, for the LoRA adapters, grad_norm/lora/decoder
-            parts.update(module_grad_norms(
-                ((f"lora.{n.removeprefix('model.')}"
-                  if n.endswith(("lora_A", "lora_B")) else n, p)
-                 for n, p in self.model.named_parameters()), sep="/",
-                group=self.shard_group, tp_group=self.tp_group))
-        self.tx.step(grads)
-        for p in params:
-            p.grad = None
-        return parts
+        0-d tensors (read only when logged). Traced, it is a ``train.step``
+        span holding ``train.forward``, ``train.backward``,
+        ``train.grad_norm`` and the optimizer's ``train.optimizer``."""
+        with span("train.step"):
+            params = self.tx.params
+            for p in params:
+                p.grad = None
+            with span("train.forward"):
+                total, parts = loss_fn(self.wrapped, self.model_cfg, batch,
+                                       self.num_prefix_tokens, self.mesh)
+            with span("train.backward"):
+                # DDP and FSDP2 average the gradients over the data group:
+                # the sum of the shares' gradients is the global batch's
+                (total * axis_size(self.mesh, DATA_AXIS)).backward()
+                if self.tp_group is not None:
+                    # the whole tensors' gradients alike on every model
+                    # rank; the LoRA adapters' summed (each rank's rows of
+                    # B A)
+                    whole = [(n, p) for n, p in self.model.named_parameters()
+                             if p.grad is not None and tp_dim(n) is None]
+                    sync_whole_grads([local(p.grad) for _, p in whole],
+                                     [n.endswith(("lora_A", "lora_B"))
+                                      for n, _ in whole], self.tp_group)
+            grads = [local(p.grad) if p.grad is not None
+                     else torch.zeros_like(local(p)) for p in params]
+            parts = {k: v.detach() for k, v in parts.items()}
+            inner = getattr(self.tx, "inner", self.tx)  # under MultiSteps
+            with span("train.grad_norm"):
+                parts["grad_norm"] = global_norm(grads, self.shard_group,
+                                                 inner.sharded, self.tp_group)
+                if self.cfg.training.watch_grads:
+                    # keyed as the JAX trainer's
+                    # grad_norm/<encoder|decoder>/<module> and, for the LoRA
+                    # adapters, grad_norm/lora/decoder
+                    parts.update(module_grad_norms(
+                        ((f"lora.{n.removeprefix('model.')}"
+                          if n.endswith(("lora_A", "lora_B")) else n, p)
+                         for n, p in self.model.named_parameters()), sep="/",
+                        group=self.shard_group, tp_group=self.tp_group))
+            self.tx.step(grads)
+            for p in params:
+                p.grad = None
+            return parts
 
     def probe_step(self, batch: Dict[str, torch.Tensor]) -> None:
         """Forward and backward of one micro-batch through the wrapper

@@ -1,22 +1,39 @@
-"""Observability of the port: metrics logging and device profiling.
+"""Observability of the port: metrics logging, device profiling, and the
+program's own spans and counters.
 
 ``MetricsLogger`` is the JAX package's (ts_asr_whisper_tpu/utils/
 observability.py:24-73) as it is: a JSONL metrics stream (``metrics.jsonl``)
-plus an optional wandb passthrough. ``start_trace``/``stop_trace``/
-``profile_trace`` and ``grad_param_norms`` are the torch counterparts of the
-JAX helpers: ``torch.profiler`` in place of ``jax.profiler``, norms over
-tensors in place of ``optax.global_norm`` over pytrees.
+plus an optional wandb passthrough. ``start_trace``/``stop_trace`` and
+``grad_param_norms`` are the torch counterparts of the JAX helpers:
+``torch.profiler`` in place of ``jax.profiler``, norms over tensors in place
+of ``optax.global_norm`` over pytrees.
+
+``span(name)`` and ``count(name, n)`` mark the program's stages. They record
+only while a ``torch.profiler`` trace is recording, in any thread: a span
+keeps ``(name, start_ns, end_ns, parent, thread, index)`` on
+``time.time_ns()``, the clock the profiler stamps its events with, so each
+gap in the trace's device activity falls in the span the host was in; it
+also opens the profiler's annotation of ``name`` (``record_function``),
+which puts it into the Chrome trace (``training.profile_dir``). With no
+trace recording, ``span`` returns one shared object that does nothing and
+reads no clock.
+``spans_between`` and ``counts_between`` read what a window recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
+import threading
 import time
-from contextlib import contextmanager
+from collections import deque
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import (Dict, Iterable, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 class MetricsLogger:
@@ -93,18 +110,96 @@ def stop_trace(prof, log_dir: str) -> Path:
     return path
 
 
-@contextmanager
-def profile_trace(log_dir: Optional[str]):
-    """torch.profiler trace context written to ``log_dir``; no-op when
-    log_dir is None."""
-    if log_dir:
-        prof = start_trace(log_dir)
-        try:
-            yield
-        finally:
-            stop_trace(prof, log_dir)
-    else:
-        yield
+# -- spans and counters on the profiler's clock -----------------------------
+
+# records kept of each kind, the oldest dropped first: a long-form batch of
+# 8 seek windows of 125 greedy steps makes ~2,100 spans, a training update
+# ~20
+MAX_RECORDS = 1 << 18
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int   # ``index`` of the enclosing span of the thread, or -1
+    thread: int   # ``threading.get_ident()`` of the thread it ran in
+    index: int    # the span's number, in the order spans open
+
+
+# the profiler's annotation of a span: its C++ one where torch has it (~1 us
+# a span on a CPU), else ``record_function``, which goes through the
+# dispatcher (~11 us)
+_Annotation = getattr(torch._C._profiler, "_RecordFunctionFast",
+                      torch.profiler.record_function)
+_spans: "deque[Span]" = deque(maxlen=MAX_RECORDS)
+_counts: "deque[Tuple[str, int, int]]" = deque(maxlen=MAX_RECORDS)
+_open = threading.local()
+_index = itertools.count()
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "start_ns", "parent", "index", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.parent = stack[-1] if stack else -1
+        self.index = next(_index)
+        stack.append(self.index)
+        self.start_ns = time.time_ns()
+        self.annotation = _Annotation(self.name)
+        self.annotation.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.annotation.__exit__(*exc)
+        end_ns = time.time_ns()
+        _open.stack.pop()
+        _spans.append(Span(self.name, self.start_ns, end_ns, self.parent,
+                           threading.get_ident(), self.index))
+        return False
+
+
+# Both read the profiler's flag of the process: its C++ state
+# (``torch._C._autograd._profiler_enabled()``) is per thread, and the
+# loader's threads would never see it.
+def span(name: str):
+    """``with span(name): ...`` records the block as a span while a trace
+    is recording; it never synchronises the device."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to counter ``name`` at this instant while a trace is
+    recording."""
+    if _autograd_profiler._is_profiler_enabled:
+        _counts.append((name, time.time_ns(), int(n)))
+
+
+def spans_between(start_ns: int, end_ns: int) -> List[Span]:
+    """The spans that overlap ``[start_ns, end_ns]``, clipped to it, in the
+    order they closed."""
+    return [s._replace(start_ns=max(s.start_ns, start_ns),
+                       end_ns=min(s.end_ns, end_ns))
+            for s in tuple(_spans)
+            if s.end_ns >= start_ns and s.start_ns <= end_ns]
+
+
+def counts_between(start_ns: int, end_ns: int) -> Dict[str, int]:
+    """Each counter's increments made in ``[start_ns, end_ns]``, summed."""
+    out: Dict[str, int] = {}
+    for name, t_ns, n in tuple(_counts):
+        if start_ns <= t_ns <= end_ns:
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def _sq_sum(tensors: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
