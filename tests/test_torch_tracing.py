@@ -193,6 +193,35 @@ def test_greedy_spans_one_stop_check_a_step(force_full_length):
             assert torch.equal(a, b)
 
 
+def test_greedy_stops_at_most_one_step_after_the_last_eos():
+    """Rows that finish at different steps: the host reads the stop flag
+    one step late, so the loop ends within one step of the step at which
+    the last row emitted EOS, with one ``greedy.stop_check`` a step and the
+    one that ends it; the outputs equal the untraced run's. Token 1270 is
+    one these weights emit within a few steps, so it serves as EOS."""
+    _, _, tcfg, model = U.make_pair(seed=1)
+    gen_cfg = _gen_cfg(tcfg, max_length=24, return_timestamps=False,
+                       eos_token_id=1270)
+    rng = np.random.default_rng(0)
+    rng.standard_normal((3, 300, 128))
+    enc = torch.from_numpy((rng.standard_normal((3, 300, 128))
+                            * 2.0).astype(np.float32))
+    prompt = torch.tensor([[tcfg.decoder_start_token_id, 1000, 1001]] * 3)
+    run = lambda: greedy_decode(model, gen_cfg, enc, prompt, 20)  # noqa: E731
+    ref, _, _ = traced(run, on=False)
+    out, spans, counts = traced(run)
+    lengths = out.lengths.tolist()
+    assert len(set(lengths)) > 1
+    last_eos_step = max(lengths) - 1 - prompt.shape[1]
+    steps = counts["greedy.steps"]
+    assert last_eos_step + 1 <= steps <= last_eos_step + 2 < 20
+    assert names(spans)["greedy.step"] == steps
+    assert names(spans)["greedy.stop_check"] == steps + 1
+    for a, b in zip(out, ref):
+        if a is not None:
+            assert torch.equal(a, b)
+
+
 def test_seek_loop_spans_and_row_counters():
     _, _, tcfg, model = U.make_pair(seed=4)
     gen_cfg = _gen_cfg(tcfg, lang_ids=(1000, 1001, 1002))

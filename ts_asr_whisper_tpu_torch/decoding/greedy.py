@@ -2,10 +2,16 @@
 
 Counterpart of ts_asr_whisper_tpu/decoding/greedy.py: the
 ``lax.while_loop`` becomes a Python loop over a preallocated token buffer
-that stops once every row has emitted EOS (one host sync per step, the
-``greedy.stop_check`` span beside each step's ``greedy.step``). Cross-
-attention K/V are computed once per window (int8 under
-``gen_cfg.cross_kv_quant``); the self-attention cache is written in place.
+that stops once every row has emitted EOS. Cross-attention K/V are computed
+once per window (int8 under ``gen_cfg.cross_kv_quant``) into the decoder's
+pooled buffers (``WhisperDecoder.greedy_buffers``), on which each step's
+decoder runs as a replayed CUDA graph on the card; the self-attention cache
+is written in place. The host reads whether every row has finished one step
+late: each step copies ``finished.all()`` to the host without waiting, and
+the next step but one waits for that copy (the ``greedy.stop_check`` span
+beside each step's ``greedy.step``), so the host launches a step while the
+device runs the one before. The loop may thus run one step past the last
+EOS; that step writes pad and adds 0 to ``sum_logprobs``.
 With a CTC rescorer (decoding/ctc_rescorer.py) the joint CTC scores join the
 attention scores inside the same loop (greedy.py:106-124). A temperature
 above 0 samples each token from softmax(scores / T) (the fallback retries of
@@ -20,7 +26,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models.dicow import DiCoW
-from ..models.whisper import quantize_cross_kv
 from ..utils.observability import count, span
 from .generation_config import GenerationConfig
 from .logits_process import make_logits_processor
@@ -73,10 +78,8 @@ def greedy_decode(
 
     process = make_logits_processor(gen_cfg, begin_index=prompt_len,
                                     device=dev)
-    cross_kv = dec.precompute_cross_kv(encoder_hidden)
-    if gen_cfg.cross_kv_quant:
-        cross_kv = quantize_cross_kv(cross_kv)
-    cache = dec.init_kv_cache(b, total_len, dev)
+    cache, cross_kv = dec.greedy_buffers(encoder_hidden, b, total_len,
+                                         gen_cfg.cross_kv_quant)
     # logits weight cast once per window, not once per step
     w_logits = dec.embed_tokens.weight.to(dec.cfg.compute_dtype).float()
     align_buf = None
@@ -100,11 +103,22 @@ def greedy_decode(
     cur_len = prompt_len
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     sum_logprobs = torch.zeros(b, dtype=torch.float32, device=dev)
+    # finished.all() of the last two steps, on the host (pinned on the card)
+    on_card = dev.type == "cuda"
+    done_flags = [torch.zeros((), dtype=torch.bool, pin_memory=on_card)
+                  for _ in range(2)]
+    done_events = [torch.cuda.Event() for _ in range(2)] if on_card else None
     while cur_len < total_len:
+        step = cur_len - prompt_len
         if not force_full_length:
-            # the step's one host sync: wait for the last step's tokens
+            # the step's one host sync: wait for the flag of the step
+            # before the last, while the device runs the last
             with span("greedy.stop_check"):
-                done = bool(finished.all())
+                done = False
+                if step >= 2:
+                    if on_card:
+                        done_events[step % 2].synchronize()
+                    done = bool(done_flags[step % 2])
             if done:
                 break
         with span("greedy.step"):
@@ -136,6 +150,10 @@ def greedy_decode(
                 # cur_len - prompt_len)
                 align_buf[:, :, cur_len - prompt_len] = probs[:, :, 0]
             logits = dec.lm_logits(hidden[:, -1], w_logits)
+            if not force_full_length:
+                done_flags[step % 2].copy_(finished.all(), non_blocking=True)
+                if on_card:
+                    done_events[step % 2].record()
         count("greedy.steps")
         cur_len += 1
 

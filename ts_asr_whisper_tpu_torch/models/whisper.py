@@ -36,6 +36,7 @@ from ..ops.beam_attention import (ancestry_attention,
                                   ancestry_attention_reference)
 from ..parallel.tensor import copy_to_model, row_parallel_linear
 from ..training.lora import adapted_weight
+from ..utils.observability import count
 from .config import DiCoWConfig
 
 KVCache = Dict[str, torch.Tensor]
@@ -289,6 +290,51 @@ def cross_attention(q: torch.Tensor, cross, dtype) -> torch.Tensor:
     return torch.matmul(pv.to(dtype), cross["v_q"].to(dtype))
 
 
+def _buffer_ptrs(kv_cache: KVCache, cross_kv: CrossKV) -> Tuple[int, ...]:
+    """The addresses of a self-attention cache and a cross-KV cache."""
+    return (kv_cache["k"].data_ptr(), kv_cache["v"].data_ptr(),
+            *(t.data_ptr() for c in cross_kv
+              for t in (c.values() if isinstance(c, dict) else c)))
+
+
+class _StepBuffers:
+    """The fixed-address buffers of the single-token step at one key: the
+    self-attention cache, the cross-KV, the step's tokens (B, 1) and its
+    position (1,) on the device; and the step's CUDA graph over them, with
+    the addresses of the parameters it was captured on."""
+
+    def __init__(self, kv_cache: KVCache, cross_kv: CrossKV, batch: int,
+                 device: torch.device):
+        self.cache, self.cross = kv_cache, cross_kv
+        self.ptrs = _buffer_ptrs(kv_cache, cross_kv)
+        self.ids = torch.zeros((batch, 1), dtype=torch.long, device=device)
+        self.pos = torch.zeros((1,), dtype=torch.long, device=device)
+        self.graph = self.out = self.params = None
+
+    def holds(self, kv_cache: KVCache, cross_kv: CrossKV) -> bool:
+        return (kv_cache["k"].data_ptr() == self.ptrs[0]
+                and _buffer_ptrs(kv_cache, cross_kv) == self.ptrs)
+
+
+class _StepPools(dict):
+    """A decoder's ``_StepBuffers`` by key. A copy of the decoder (deepcopy,
+    pickling) starts with none: buffers and graphs stay with the decoder
+    that made them, and are freed with it."""
+
+    def __deepcopy__(self, memo):
+        return _StepPools()
+
+    def __reduce__(self):
+        return (_StepPools, ())
+
+
+def _is_dtensor(t: torch.Tensor) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def sinusoidal_positions(length: int, d_model: int) -> np.ndarray:
     """Whisper encoder sinusoids (whisper.py:807-812)."""
     log_timescale = math.log(10000) / (d_model // 2 - 1)
@@ -311,6 +357,8 @@ class WhisperDecoder(nn.Module):
         self.layer_norm = LayerNorm(d)
         # None, or the remat policy: see DiCoW.set_gradient_checkpointing
         self.remat = None
+        # the greedy step's buffers and graphs: see greedy_buffers
+        self._step_pools = _StepPools()
 
     def embed(self, input_ids: torch.Tensor, pos0: int) -> torch.Tensor:
         dt = self.cfg.compute_dtype
@@ -368,6 +416,55 @@ class WhisperDecoder(nn.Module):
         return {"k": torch.zeros(shape, dtype=c.compute_dtype, device=device),
                 "v": torch.zeros(shape, dtype=c.compute_dtype, device=device)}
 
+    def greedy_buffers(self, encoder_hidden: torch.Tensor, batch: int,
+                       max_len: int, quant: bool) -> Tuple[KVCache, CrossKV]:
+        """A zeroed self-attention cache and the cross-KV of
+        ``encoder_hidden`` (int8 under ``quant``), in buffers of this
+        decoder's own that keep their addresses from one decode to the next:
+        one set per key (batch rows, cache length, encoder frames, cross-KV
+        kind, compute dtype, cache layout, device). ``decoder_cached`` runs
+        its single-token steps on them through ``decoder_step``, replayed
+        as a CUDA graph on the card. A decoder split over a ``model`` group
+        or into DTensors gets fresh buffers, which take the eager step."""
+        cross = self.precompute_cross_kv(encoder_hidden)
+        if quant:
+            cross = quantize_cross_kv(cross)
+        dev = encoder_hidden.device
+        params = self._static_params()
+        if params is None:
+            return self.init_kv_cache(batch, max_len, dev), cross
+        key = (batch, max_len, encoder_hidden.shape[1], quant,
+               self.cfg.compute_dtype, _KV_LAYOUT, dev)
+        bufs = self._step_pools.get(key)
+        if bufs is None:
+            bufs = self._step_pools[key] = _StepBuffers(
+                self.init_kv_cache(batch, max_len, dev), cross, batch, dev)
+        else:
+            for c in bufs.cache.values():
+                c.zero_()
+            for dst, src in zip(bufs.cross, cross):
+                if isinstance(dst, dict):
+                    dst, src = dst.values(), src.values()
+                for d, s in zip(dst, src):
+                    d.copy_(s)
+        if bufs.params != params:
+            # a graph reads the parameters at the addresses it was captured
+            # on: recapture after a cast, a reload by assignment, or a
+            # change of the adapters
+            bufs.graph = bufs.out = None
+            bufs.params = params
+        return bufs.cache, bufs.cross
+
+    def _static_params(self) -> Optional[Tuple[int, ...]]:
+        """The parameters' addresses, or None if a layer is split over a
+        ``model`` group or a parameter is a DTensor."""
+        params = list(self.parameters())
+        if any(_is_dtensor(p) for p in params) or any(
+                getattr(m, "tp_group", None) is not None
+                for m in self.modules()):
+            return None
+        return tuple(p.data_ptr() for p in params)
+
     def decoder_cached(self, input_ids: torch.Tensor, pos: int,
                        kv_cache: KVCache, cross_kv: CrossKV,
                        beam_src: Optional[torch.Tensor] = None,
@@ -394,7 +491,20 @@ class WhisperDecoder(nn.Module):
         Query i sees cache keys j <= pos + i (whisper.py:443-446), with fp32
         scores masked by finfo(float32).min in every layout; the keys past
         pos + T_new are left out instead of masked, which changes no value:
-        a masked key's probability is exactly 0."""
+        a masked key's probability is exactly 0.
+
+        One token on the buffers of ``greedy_buffers``, with neither
+        ``beam_src`` nor ``alignment_slots`` and no gradient, runs
+        ``decoder_step`` instead: on the card as a CUDA graph, captured the
+        first time its buffers are used and replayed from then on. Its
+        hidden state is then the graph's output buffer, which the next step
+        on the same buffers overwrites."""
+        if (beam_src is None and alignment_slots is None
+                and input_ids.shape[-1] == 1 and not torch.is_grad_enabled()):
+            bufs = next((b for b in self._step_pools.values()
+                         if b.holds(kv_cache, cross_kv)), None)
+            if bufs is not None:
+                return self._buffered_step(bufs, input_ids, pos)
         if alignment_slots is not None and isinstance(cross_kv[0], dict):
             raise ValueError(
                 "alignment collection needs the exact cross-KV cache")
@@ -431,6 +541,72 @@ class WhisperDecoder(nn.Module):
                 probs = sel_probs if probs is None else probs + sel_probs
         x = self.layer_norm(x)
         return x if alignment_slots is None else (x, probs)
+
+    def decoder_step(self, ids: torch.Tensor, pos: torch.Tensor,
+                     kv_cache: KVCache, cross_kv: CrossKV) -> torch.Tensor:
+        """One token a row, ids (B, 1), at the position ``pos``, a (1,)
+        int64 tensor on the device, through the decoder over static shapes:
+        the body that ``decoder_cached`` replays as a CUDA graph. The
+        embedding reads the position with ``index_select``, K/V are written
+        at it with ``index_copy_``, and the self-attention covers the whole
+        cache, its keys past ``pos`` masked by finfo(float32).min
+        (probability exactly 0), as the JAX loop computes it
+        (whisper.py:443-446). Returns the final hidden (B, 1, D)."""
+        dt = self.cfg.compute_dtype
+        layout = _KV_LAYOUT
+        x = (self.embed_tokens.weight.index_select(0, ids[:, 0]).to(dt)
+             + self.embed_positions.weight.index_select(0, pos).to(dt))
+        x = x[:, None]
+        max_len = _as_bhtd(kv_cache["k"][0], layout).shape[2]
+        mask = torch.arange(max_len, device=ids.device)[None, :] \
+            <= pos[:, None]                                   # (1, T)
+        for li, layer in enumerate(self.layers):
+            h = layer.self_attn_layer_norm(x)
+            q = layer.self_attn.query(h, dt)
+            k_new, v_new = layer.self_attn.keys_values(h, dt)
+            ks = _as_bhtd(kv_cache["k"][li], layout)
+            vs = _as_bhtd(kv_cache["v"][li], layout)
+            ks.index_copy_(2, pos, k_new)
+            vs.index_copy_(2, pos, v_new)
+            x = x + layer.self_attn.out(plain_sdpa(q, ks, vs, mask), dt)
+            x = self._cross_and_mlp(layer, x, cross_kv[li])[0]
+        return self.layer_norm(x)
+
+    def _buffered_step(self, bufs: _StepBuffers, input_ids: torch.Tensor,
+                       pos: int) -> torch.Tensor:
+        """``decoder_step`` on ``bufs``: run as it is off the card; on the
+        card its graph replayed, captured first if ``bufs`` has none."""
+        bufs.ids.copy_(input_ids)
+        bufs.pos.fill_(pos)
+        if bufs.ids.device.type != "cuda":
+            return self.decoder_step(bufs.ids, bufs.pos, bufs.cache,
+                                     bufs.cross)
+        if bufs.graph is None:
+            self._capture(bufs)
+        bufs.graph.replay()
+        count("greedy.graph_replays")
+        return bufs.out
+
+    def _capture(self, bufs: _StepBuffers) -> None:
+        """Capture ``decoder_step`` on ``bufs`` as a CUDA graph. It reads the
+        parameters where they lie at each replay, so in-place updates (the
+        optimizer's) reach it; only its intermediates are its own."""
+        step = partial(self.decoder_step, bufs.ids, bufs.pos, bufs.cache,
+                       bufs.cross)
+        with torch.cuda.device(bufs.ids.device):
+            # one run on a side stream first, as torch.cuda.graphs asks, so
+            # that the libraries set up outside the capture; it writes the
+            # K/V that the replay writes again
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                bufs.out = step()
+        bufs.graph = graph
+        count("greedy.graph_captures")
 
     def _cross_and_mlp(self, layer: DecoderLayer, x: torch.Tensor, cross,
                        sel: Optional[torch.Tensor] = None):
