@@ -6,7 +6,7 @@
 Phases, each of which fails the run (non-zero exit) when it breaks:
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
      no CUDA device -> exit 2, there is no CPU path;
-  2. build the six CUDA kernels from the five sources of kernels/csrc with
+  2. build the eight CUDA kernels from the six sources of kernels/csrc with
      nvcc, one nvcc per source, all started together;
   3. flash attention vs its plain PyTorch version at the encoder's shapes,
      bf16 and fp32, output and row log-sum-exp, with errors and median
@@ -38,6 +38,11 @@ Phases, each of which fails the run (non-zero exit) when it breaks:
      (4, 10, 20, 128, 64), at T 448 and at Bb 15 (batch 3 x 5), with source
      rows drawn with repeats, the identity and a reversal within groups;
      CUDA-event and profiler times beside torch.index_select's;
+  5c. the fine-tune's multi-tensor kernels at the dicow_v3 cell's trained
+     leaf set (761 leaves, 720 M fp32 parameters at turbo width): the
+     norm against the plain sum, two AdamW updates with the clip on against
+     the per-leaf loop bit for bit; times beside the bounds, the plain
+     versions, torch.optim.AdamW(fused=True) and torch._foreach_norm;
   6. the large-v3-turbo DiCoW encoder at fp32 on 2 windows, through the
      kernel and through plain attention;
   7. long-form greedy decode of a synthetic 16-row corpus (8 two-speaker
@@ -278,8 +283,11 @@ TURBO = {"vocab_size": 51866, "num_mel_bins": 128, "d_model": 1280,
          "encoder_attention_heads": 20, "decoder_attention_heads": 20,
          "encoder_ffn_dim": 5120, "decoder_ffn_dim": 5120,
          "max_source_positions": 1500, "max_target_positions": 448}
-KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "ancestry_attn",
-           "psi_gather_dot", "kv_reorder_bhtd", "kv_reorder_tbhd")
+# the ported TPU kernels (what cuda_kernel_check checks), then the
+# fine-tune's multi-tensor kernels, which replace none
+PORTED = ("flash_attn_fwd", "flash_attn_bwd", "ancestry_attn",
+          "psi_gather_dot", "kv_reorder_bhtd", "kv_reorder_tbhd")
+KERNELS = PORTED + ("adamw_multi", "sq_norm_multi")
 ENC_SHAPE = (16, 20, 1500, 64)   # turbo encoder attention at batch 16
 RAGGED_T = (257, 1000, 1499)
 TOLS = {torch.float32: (2e-5, 1e-5),   # as tests/test_attention.py
@@ -328,6 +336,15 @@ BLANK_LOGIT, W_SPAN = 20.0, 300
 # the model's maximum 448
 REORDER_CASES = ((128, 10), (128, 15), (448, 10))
 REORDER_KINDS = ("repeats", "identity", "reversal")
+# the multi-tensor optimizer phase: the dicow_v3 cell's model settings
+# (benchmark/configs/dicow_v3_turbo.json) at turbo width; the norm kernel
+# sums in double where _sq_sum sums in fp32
+OPTIM_MODEL = dict(ctc_weight=0.3, additional_self_attention_layer=True,
+                   pre_ctc_sub_sample=True, fddt_is_diagonal=True,
+                   use_pre_pos_fddt=True, apply_fddt_to_n_layers=-1,
+                   non_target_fddt_value=0.5, max_source_positions=1500,
+                   max_target_positions=448)
+OPTIM_NORM_RTOL = 1e-5
 # SE-DiCoW: se_dicow_greedy.yaml's SCB count
 SCB_LAYERS = 8
 # the fallback ladder of Whisper's published generation_config.json
@@ -1039,6 +1056,125 @@ def phase_reorder(dev) -> dict:
     return main
 
 
+def optim_leaves(dev) -> dict:
+    """The dicow_v3 cell's trained leaves at turbo width, fp32 on the card
+    (label -> parameters, as build_optimizer groups them): the model built
+    on the meta device for its names and shapes, labelled as the fine-tune
+    labels them (decoder frozen), the values drawn from a fixed seed."""
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.models.config import make_config
+    from ts_asr_whisper_tpu_torch.models.dicow import DiCoW
+    from ts_asr_whisper_tpu_torch.training.optim import param_labels
+
+    with torch.device("meta"):
+        model = DiCoW(make_config("large-v3-turbo", **OPTIM_MODEL))
+    labels = param_labels(model, load_config(
+        [], n_devices=1).model.prefixes_to_preheat, ["decoder"], False)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    groups = {}
+    for name, p in model.named_parameters():
+        if labels[name] != "frozen":
+            groups.setdefault(labels[name], []).append(torch.nn.Parameter(
+                torch.randn(p.shape, device=dev, generator=gen) * 0.02))
+    return groups
+
+
+def phase_optimizer(dev) -> dict:
+    """The fine-tune's multi-tensor kernels at the dicow_v3 cell's trained
+    leaf set (optim_leaves): sq_norm_multi against _sq_sum (within
+    OPTIM_NORM_RTOL, the same bits twice), adamw_multi against AdamW's
+    per-leaf loop on the card after two updates with the clip on, bit for
+    bit; then times with CUDA events (per call) and torch.profiler
+    (device) beside the plain versions and, as yardsticks the port never
+    calls, torch.optim.AdamW(fused=True) and torch._foreach_norm. The
+    bounds count bytes: the update reads p, g, m, v and writes p, m, v (28
+    bytes a fp32 parameter), the norm reads each gradient once."""
+    import dataclasses
+
+    from ts_asr_whisper_tpu_torch.config import load_config
+    from ts_asr_whisper_tpu_torch.training.optim import AdamW
+    from ts_asr_whisper_tpu_torch.utils.observability import (_sq_sum,
+                                                               global_norm)
+
+    t0 = time.perf_counter()
+    groups = optim_leaves(dev)
+    twins = {k: [torch.nn.Parameter(p.detach().clone()) for p in v]
+             for k, v in groups.items()}
+    # dicow_v3's optimizer settings over base.yaml's
+    cfg = dataclasses.replace(load_config([], n_devices=1).training,
+                              learning_rate=2e-6, warmup_steps=0,
+                              max_steps=40000, lr_scheduler_type="cosine")
+    kernel = AdamW(groups, cfg, cfg.fddt_lr_multiplier)
+    plain = AdamW(twins, cfg, cfg.fddt_lr_multiplier)
+    plain.table = None  # the per-leaf loop, also on the card
+    n = sum(p.numel() for p in kernel.params)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    grads = [torch.randn(p.shape, device=dev, generator=gen) * 1e-3
+             for p in kernel.params]
+    g_norm = global_norm(grads)
+    again = global_norm(grads)
+    ref = _sq_sum(grads).sqrt()
+    torch.cuda.synchronize()
+    rel = abs(g_norm.item() - ref.item()) / ref.item()
+    if rel > OPTIM_NORM_RTOL or not torch.equal(g_norm, again):
+        raise AssertionError(f"sq_norm_multi: norm {g_norm.item()} against "
+                             f"the plain {ref.item()} ({rel:.2e} apart), "
+                             f"again {again.item()}")
+    for _ in range(2):
+        kernel.step(grads, g_norm=g_norm)
+        plain.step(grads, g_norm=g_norm)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(kernel.params, plain.params)):
+        if not (torch.equal(a, b) and torch.equal(kernel.mu[i], plain.mu[i])
+                and torch.equal(kernel.nu[i], plain.nu[i])):
+            raise AssertionError(f"adamw_multi disagrees with the loop at "
+                                 f"leaf {i} {tuple(a.shape)}")
+    log(f"[optim] {len(kernel.params)} trained leaves, {n / 1e6:.1f} M fp32 "
+        f"parameters: norm {g_norm.item():.6f} (clip on, max "
+        f"{cfg.max_grad_norm}), {rel:.2e} from the plain sum, the same bits "
+        f"twice; two updates equal to the loop bit for bit")
+    del twins
+    step = lambda: kernel.step(grads, g_norm=g_norm)  # noqa: E731
+    norm = lambda: global_norm(grads)  # noqa: E731
+    ms, dev_ms = median_ms(step), measure_device_ms(step, reps=10)
+    plain_ms = median_ms(lambda: plain.step(grads, g_norm=g_norm), reps=3,
+                         warmup=1)
+    del plain
+    fused = torch.optim.AdamW(kernel.params, lr=2e-6, weight_decay=0.0,
+                              eps=cfg.adam_epsilon, fused=True)
+    for p, g in zip(kernel.params, grads):
+        p.grad = g
+    lib_ms = median_ms(fused.step)
+    lib_dev_ms = measure_device_ms(fused.step, reps=10)
+    del fused
+    for p in kernel.params:
+        p.grad = None
+    adam = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            **bound(0.0, 28 * n, torch.float32), "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms}
+    n_ms, n_dev_ms = median_ms(norm), measure_device_ms(norm, reps=10)
+    n_plain_ms = median_ms(lambda: _sq_sum(grads).sqrt(), reps=5)
+    foreach = lambda: torch.linalg.vector_norm(  # noqa: E731
+        torch.stack(torch._foreach_norm(grads)))
+    n_lib_ms = median_ms(foreach)
+    n_lib_dev_ms = measure_device_ms(foreach, reps=10)
+    sq = {"rel_err": rel, "ms": n_ms, "device_ms": n_dev_ms,
+          "plain_ms": n_plain_ms, **bound(0.0, 4 * n, torch.float32),
+          "library_ms": n_lib_ms, "library_device_ms": n_lib_dev_ms}
+    for name, r, lib in (("adamw_multi", adam, "AdamW(fused=True)"),
+                         ("sq_norm_multi", sq, "_foreach_norm")):
+        log(f"[optim] {name}: per call {r['ms']:.3f} ms, device "
+            f"{fmt_ms(r['device_ms'])} ({share(r['bound_ms'], r['device_ms'])}"
+            f" of the bound {r['bound_ms']:.3f} ms, {r['bound_by']}); plain "
+            f"{r['plain_ms']:.3f} ms; {lib} {r['library_ms']:.3f} ms, device "
+            f"{fmt_ms(r['library_device_ms'])}")
+    log(f"[optim] phase {time.perf_counter() - t0:.1f} s")
+    del kernel, grads, groups
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"adamw_multi": adam, "sq_norm_multi": sq}
+
+
 def phase_encoder(dev) -> None:
     from ts_asr_whisper_tpu_torch.models.config import DiCoWConfig
     from ts_asr_whisper_tpu_torch.models.dicow import build_dicow
@@ -1425,6 +1561,15 @@ def phase_train(dev) -> dict:
             f"train: flash launches fwd {launches['flash_attn_fwd']} bwd "
             f"{launches['flash_attn_bwd']}, want {want} ({per_batch} x "
             f"{t.max_steps} micro-batches)")
+    # every update one launch of the multi-tensor AdamW (each phase's
+    # trained leaves fit one table); the norm once a micro-batch (the
+    # logged one) and once an update (the inner step's, under MultiSteps)
+    if (launches["adamw_multi"], launches["sq_norm_multi"]) != (
+            updates, t.max_steps + (updates if k > 1 else 0)):
+        raise AssertionError(
+            f"train: adamw_multi {launches['adamw_multi']} and "
+            f"sq_norm_multi {launches['sq_norm_multi']} launches for "
+            f"{updates} updates of {k} micro-batches")
     if set(phase_labels) != {"preheat", "base"}:
         raise AssertionError(f"train: phases seen {sorted(phase_labels)}")
     pre = {n for n, lab in phase_labels["preheat"].items()
@@ -3801,7 +3946,7 @@ def phase_tools(dev, exporting: dict) -> dict:
 
     res = run_tool("cuda_kernel_check", "cuda_kernel_check", [])
     if "OK: all six CUDA kernels match" not in res["out"] or not all(
-            res["launches"][k] for k in KERNELS):
+            res["launches"][k] for k in PORTED):
         raise AssertionError(f"cuda_kernel_check: {res['launches']}")
     paths["tool:cuda_kernel_check"] = res["launches"]
 
@@ -3884,6 +4029,7 @@ def main() -> int:
     k_anc = phase_ancestry(dev)
     k_psi = phase_psi(dev)
     k_reorder = phase_reorder(dev)
+    k_optim = phase_optimizer(dev)
     phase_encoder(dev)
     phase_mel_topk(dev)
     mark(t_start, "phases 1-6 and 19")
@@ -3928,9 +4074,12 @@ def main() -> int:
                 "ancestry_attn": "ts_asr_whisper_tpu/ops/beam_attention.py:110",
                 "psi_gather_dot": "ts_asr_whisper_tpu/ops/psi_gather.py:125",
                 "kv_reorder_bhtd": "ts_asr_whisper_tpu/ops/reorder.py:36",
-                "kv_reorder_tbhd": "ts_asr_whisper_tpu/ops/reorder.py:64"}
+                "kv_reorder_tbhd": "ts_asr_whisper_tpu/ops/reorder.py:64",
+                # on the TPU XLA fused optax's clip and update
+                "adamw_multi": "none", "sq_norm_multi": "none"}
     timing = {"flash_attn_fwd": k_flash, "flash_attn_bwd": k_bwd,
-              "ancestry_attn": k_anc, "psi_gather_dot": k_psi, **k_reorder}
+              "ancestry_attn": k_anc, "psi_gather_dot": k_psi, **k_reorder,
+              **k_optim}
     record = {"kernels": [{
         "name": name, "route": "cuda",
         "source": f"{csrc}/{KERNEL_SOURCES[name]}.cu",

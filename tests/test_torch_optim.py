@@ -168,3 +168,127 @@ def test_accumulation_follows_multisteps():
         moved = any(not torch.equal(p, before[n])
                     for n, p in model.named_parameters())
         assert moved == (micro >= 1)
+
+
+def _random_grads(tx, rng, none_every=0):
+    """One gradient per trained leaf; with ``none_every``, every such leaf
+    without one (None)."""
+    return [None if none_every and i % none_every == 0 else
+            torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(
+                np.float32) * 0.1) for i, p in enumerate(tx.params)]
+
+
+@pytest.mark.parametrize("case", ["g_norm", "none_grads"])
+def test_step_takes_the_callers_norm_and_none_gradients(case):
+    """``step(grads, g_norm=global_norm(grads))`` equals ``step(grads)``
+    (the trainer hands its norm over), and a None gradient steps as a zero
+    one, bit for bit over three updates with the clip on."""
+    cfg = _training_cfg(learning_rate=1e-4, warmup_steps=0, max_steps=10,
+                        max_grad_norm=0.5, weight_decay=0.01)
+    _, _, _, model = U.make_pair(seed=6)
+    _, _, _, twin = U.make_pair(seed=6)
+    a, _ = TO.build_optimizer(model, cfg, PREHEAT, FROZEN, False)
+    b, _ = TO.build_optimizer(twin, cfg, PREHEAT, FROZEN, False)
+    rng = np.random.default_rng(7)
+    for _ in range(3):
+        grads = _random_grads(a, rng, none_every=5 if case == "none_grads"
+                              else 0)
+        if case == "g_norm":
+            a.step(grads, g_norm=TO.global_norm(grads))
+            b.step(grads)
+        else:
+            zeros = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, b.params)]
+            # the norm's sums run in another order with the zeros in them
+            norm = TO.global_norm(zeros)
+            np.testing.assert_allclose(float(TO.global_norm(grads)),
+                                       float(norm), rtol=1e-6)
+            a.step(grads, g_norm=norm)
+            b.step(zeros, g_norm=norm)
+    assert a.count == b.count == 3
+    for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+        assert torch.equal(p, q), name
+
+
+@pytest.mark.parametrize("accumulation", [1, 2])
+def test_train_step_computes_the_norm_once_an_update(tmp_path, monkeypatch,
+                                                     accumulation):
+    """At accumulation 1 ``train_step`` computes the global norm once and
+    hands it to the update; under MultiSteps each micro-batch computes the
+    logged norm and the inner update that of the running mean."""
+    from ts_asr_whisper_tpu_torch.config import load_config as port_config
+    from ts_asr_whisper_tpu_torch.training import trainer as TT
+    from ts_asr_whisper_tpu_torch.utils import observability as OBS
+
+    _, _, _, model = U.make_pair(seed=8)
+    cfg = port_config([
+        "model.dtype=float32", "training.use_fddt_only_n_steps=0",
+        "training.use_fddt_only_n_epochs=0", "training.max_steps=4",
+        f"training.gradient_accumulation_steps={accumulation}",
+        "training.warmup_steps=0", "training.eval_strategy=no",
+        "training.save_strategy=no", "training.mesh_shape=[1]",
+        "model.params_to_keep_frozen_keywords=[decoder]",
+        f"training.output_dir={tmp_path}"], n_devices=1)
+    tt = TT.Trainer(cfg, model, num_prefix_tokens=2)
+    inner = getattr(tt.tx, "inner", tt.tx)
+    norms, handed = [], []
+    orig_norms, orig_step = OBS._norms, inner.step
+    monkeypatch.setattr(OBS, "_norms", lambda *a, **k: norms.append(1)
+                        or orig_norms(*a, **k))
+
+    def step(grads, g_norm=None):
+        handed.append(g_norm)
+        return orig_step(grads, g_norm)
+
+    monkeypatch.setattr(inner, "step", step)
+    rng = np.random.default_rng(9)
+    logged = []
+    for _ in range(2 * accumulation):
+        feats, stno = U.encoder_inputs(rng)
+        labels = rng.integers(0, 1990, (2, 16))
+        labels[:, :3] = [1994, 1995, 1996]
+        batch = {"input_features": feats, "stno_mask": stno,
+                 "labels": labels, "upp_labels": labels}
+        logged.append(tt.train_step(TT.to_device(batch, "cpu"))["grad_norm"])
+    assert inner.count == 2 and len(handed) == 2
+    if accumulation == 1:
+        assert len(norms) == 2
+        assert all(h is n for h, n in zip(handed, logged))
+    else:
+        assert len(norms) == 2 * accumulation + 2
+        assert handed == [None, None]
+
+
+@pytest.mark.parametrize("chunk,max_leaves", [(4, 3), (16, 768), (7, 1)])
+def test_multi_tensor_plan_over_ragged_leaves(chunk, max_leaves):
+    """The launches of the multi-tensor kernels: every leaf in exactly one
+    launch of at most ``max_leaves``, each block of a launch inside its
+    leaf (an empty leaf takes none), and each slot of the norm summing the
+    blocks of its own leaves."""
+    from ts_asr_whisper_tpu_torch.ops import multi_tensor as MT
+
+    rng = np.random.default_rng(chunk)
+    numels = [int(n) for n in rng.choice([0, 1, 2, 3, 5, 17, 64, 65, 1000],
+                                         size=40)]
+    segments = MT.plan_segments(numels, chunk, max_leaves)
+    assert [s.first for s in segments] == list(range(0, 40, max_leaves))
+    assert segments[-1].last == 40
+    owner = []  # (launch, leaf, first element) of every block
+    for k, seg in enumerate(segments):
+        assert 0 < seg.last - seg.first <= max_leaves
+        for b in range(int(seg.chunk_end[-1])):
+            i = int(np.searchsorted(seg.chunk_end, b, side="right"))
+            start = (b - (int(seg.chunk_end[i - 1]) if i else 0)) * chunk
+            assert start < numels[seg.first + i]
+            owner.append((k, seg.first + i, start))
+    assert len(owner) == sum(-(-n // chunk) for n in numels)
+    assert len(set(owner)) == len(owner)
+    # the norm's slots: leaves sorted by slot, slot s = blocks [e[s-1], e[s])
+    slots = sorted(rng.integers(0, 6, size=40).tolist())
+    ends = MT.slot_ends(slots, segments, 7)
+    for s in range(7):
+        lo = int(ends[s - 1]) if s else 0
+        assert [leaf for _, leaf, _ in owner[lo:int(ends[s])]] == [
+            i for i in range(40) if slots[i] == s
+            for _ in range(-(-numels[i] // chunk))]
+    assert list(MT.slot_ends([], [], 3)) == [0, 0, 0]

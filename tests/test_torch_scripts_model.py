@@ -126,7 +126,8 @@ def test_profile_decode_prints_every_stage(monkeypatch, capsys):
     launches = json.loads(out.split("kernel launches: ")[1].splitlines()[0])
     assert set(launches) == {"flash_attn_fwd", "flash_attn_bwd",
                              "ancestry_attn", "psi_gather_dot",
-                             "kv_reorder_bhtd", "kv_reorder_tbhd"}
+                             "kv_reorder_bhtd", "kv_reorder_tbhd",
+                             "adamw_multi", "sq_norm_multi"}
 
 
 def test_probe_train_batch_reports_oom_and_goes_on(monkeypatch, capsys):

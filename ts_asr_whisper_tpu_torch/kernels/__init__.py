@@ -35,7 +35,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_SOURCES: Dict[str, str] = {
     "flash_attn_fwd": "flash_attn_fwd", "flash_attn_bwd": "flash_attn_bwd",
     "ancestry_attn": "ancestry_attn", "psi_gather_dot": "psi_gather_dot",
-    "kv_reorder_bhtd": "kv_reorder", "kv_reorder_tbhd": "kv_reorder"}
+    "kv_reorder_bhtd": "kv_reorder", "kv_reorder_tbhd": "kv_reorder",
+    "adamw_multi": "adamw_multi", "sq_norm_multi": "adamw_multi"}
 # kernel name -> number of launches; each wrapper adds one where it launches
 # its kernel, and nowhere else
 launch_counts: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
@@ -124,9 +125,11 @@ ENTRY_POINTS: Dict[str, Dict[str, tuple]] = {
     "flash_attn_bwd": {"flash_attn_bwd": (11, 5)},
     "ancestry_attn": {"ancestry_attn": (8, 6)},
     "psi_gather_dot": {"psi_gather_dot": (5, 8)},
-    "kv_reorder": {"kv_reorder_bhtd": (3, 4), "kv_reorder_tbhd": (3, 4)}}
+    "kv_reorder": {"kv_reorder_bhtd": (3, 4), "kv_reorder_tbhd": (3, 4)},
+    "adamw_multi": {"adamw_multi": (4, 2), "sq_norm_multi": (5, 5)}}
 # source -> C functions that take one int and return one: a build's limits
-QUERIES: Dict[str, tuple] = {"ancestry_attn": ("ancestry_attn_max_len",)}
+QUERIES: Dict[str, tuple] = {"ancestry_attn": ("ancestry_attn_max_len",),
+                             "adamw_multi": ("adamw_multi_limit",)}
 
 
 def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
@@ -166,3 +169,7 @@ def psi_gather_dot_lib() -> ctypes.CDLL:
 
 def kv_reorder_lib() -> ctypes.CDLL:
     return load("kv_reorder")
+
+
+def adamw_multi_lib() -> ctypes.CDLL:
+    return load("adamw_multi")

@@ -34,6 +34,14 @@ def timestamp_smoothing_matrix(sigma: float = TIMESTAMP_SIGMA) -> np.ndarray:
     return w.astype(np.float32)
 
 
+@lru_cache(maxsize=8)
+def timestamp_smoothing_on(device: torch.device) -> torch.Tensor:
+    """``timestamp_smoothing_matrix()`` on ``device``, copied there once: a
+    copy per step from pageable host memory would wait for the card. Read
+    only."""
+    return torch.from_numpy(timestamp_smoothing_matrix()).to(device)
+
+
 def soft_ce_token_loss(log_probs: torch.Tensor, labels: torch.Tensor,
                        timestamp_begin: int,
                        ts_matrix: torch.Tensor) -> torch.Tensor:
@@ -63,8 +71,7 @@ def decoder_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     tb = cfg.timestamp_begin
     if use_timestamp_smoothing:
-        ts = torch.from_numpy(timestamp_smoothing_matrix()).to(
-            log_probs.device)
+        ts = timestamp_smoothing_on(log_probs.device)
 
         def token_loss(lab):
             return soft_ce_token_loss(log_probs, lab, tb, ts)

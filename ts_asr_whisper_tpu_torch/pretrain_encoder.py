@@ -123,8 +123,7 @@ def main(cfg: Cfg, device: torch.device) -> Dict[str, float]:
             p.grad = None
         loss = pretrain_loss(model, mc, batch, num_prefix)
         loss.backward()
-        tx.step([p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in tx.params])
+        tx.step([p.grad for p in tx.params])  # None steps on zeros
         step += 1
         if step % t.logging_steps == 0:
             logger.info("pretrain step %d loss %.4f", step, float(loss))

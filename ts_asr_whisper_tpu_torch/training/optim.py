@@ -21,6 +21,13 @@ optax computes it so that the same gradients give the same parameters:
 - ``optax.MultiSteps`` for gradient accumulation: a running mean of the k
   micro-batch gradients, and one inner update every k-th micro-batch.
 
+For CUDA parameters the clip and the update of every leaf are one
+hand-written kernel launch (``ops/multi_tensor.py``, ``adamw_multi``) that
+keeps this arithmetic operation by operation; the loop below is the CPU path
+and the kernel's reference. Either path takes the global norm from the
+caller when it has computed it (``step(grads, g_norm)``), so an update
+computes it once.
+
 Under FSDP2 (``training.shard_params``) each rank steps on its shards of the
 parameters and gradients as plain tensors, with the same arithmetic; the
 clip reads the norm of the whole gradient, its squared sum added over the
@@ -35,10 +42,12 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..config import TrainingConfig
+from ..kernels import route
 from ..parallel.mesh import local
 from ..parallel.tensor import tp_dim
 from ..utils.observability import global_norm, span
@@ -127,7 +136,11 @@ class AdamW:
     ``groups`` (label -> list of parameters). ``step(grads)`` takes one
     gradient per parameter, in the order of ``params``: this rank's shard
     of it when the parameters are sharded over ``group``. ``sharded``
-    flags the parameters sliced over ``tp_group`` (tensor parallelism)."""
+    flags the parameters sliced over ``tp_group`` (tensor parallelism).
+    The second moment is kept in fp32 (what the loop's fp32 arithmetic
+    stores after the first update). For CUDA parameters ``table`` holds the
+    kernel's table of the leaves; the moments then stay at their addresses
+    and are updated in place."""
 
     def __init__(self, groups: Dict[str, List[nn.Parameter]],
                  cfg: TrainingConfig, lr_multiplier: float, group=None,
@@ -149,40 +162,78 @@ class AdamW:
             else None
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
                    for p in self.local]
-        self.nu = [torch.zeros_like(p) for p in self.local]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32)
+                   for p in self.local]
         self.count = 0
+        self.table = None
+        if self.local and route(self.local[0], "AdamW") == "kernel":
+            from ..ops.multi_tensor import AdamWTable
+
+            self.table = AdamWTable(
+                self.local, self.mu, self.nu,
+                [k for k, label in enumerate(LABELS)
+                 for _ in groups.get(label, ())])
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
+    def step(self, grads: Sequence[Optional[torch.Tensor]],
+             g_norm: Optional[torch.Tensor] = None) -> None:
+        """One update. ``grads``: one per parameter, None read as a zero
+        gradient. ``g_norm``: their global norm where the caller has it
+        (``global_norm`` over the same gradients, ``group``, ``sharded``
+        and ``tp_group``), else computed here. On the card nothing here
+        waits for it."""
         with span("train.optimizer"):
             cfg = self.cfg
-            b1, b2, eps, wd = (cfg.adam_beta1, cfg.adam_beta2,
-                               cfg.adam_epsilon, cfg.weight_decay)
-            g_norm = global_norm(grads, self.group, self.sharded,
-                                 self.tp_group)
-            clip = not bool(g_norm < cfg.max_grad_norm)
+            if g_norm is None:
+                g_norm = global_norm(grads, self.group, self.sharded,
+                                     self.tp_group)
             count_inc = self.count + 1
             # optax computes the bias corrections in fp32
             f32 = torch.float32
-            bc1 = float(1 - torch.tensor(b1, dtype=f32) ** count_inc)
-            bc2 = float(1 - torch.tensor(b2, dtype=f32) ** count_inc)
-            i = 0
-            for label in LABELS:
-                lr = float(torch.tensor(self.schedules[label](self.count),
-                                        dtype=f32))
-                for _ in self.groups.get(label, ()):
-                    p, g = self.local[i], grads[i].float()
-                    if clip:
-                        g = (g / g_norm.to(g.device)) * cfg.max_grad_norm
-                    mu = (1 - b1) * g + b1 * self.mu[i].float()
-                    nu = (1 - b2) * g * g + b2 * self.nu[i]
-                    upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-                    upd = upd + wd * p
-                    p.add_((-lr * upd).to(p.dtype))
-                    self.mu[i] = mu.to(self.mu[i].dtype)
-                    self.nu[i] = nu
-                    i += 1
+            bc1 = float(1 - torch.tensor(cfg.adam_beta1, dtype=f32)
+                        ** count_inc)
+            bc2 = float(1 - torch.tensor(cfg.adam_beta2, dtype=f32)
+                        ** count_inc)
+            lrs = [float(torch.tensor(self.schedules[label](self.count),
+                                      dtype=f32)) for label in LABELS]
+            if self.table is not None:
+                b1, b2 = cfg.adam_beta1, cfg.adam_beta2
+                one = np.float32(1.0)
+                # each scalar as the loop's eager ops take it: a Python float
+                # rounded to fp32, a division by one as the fp32 reciprocal
+                self.table.step(grads, g_norm, np.array(
+                    [1 - b1, b1, 1 - b2, b2, one / np.float32(bc1),
+                     one / np.float32(bc2), cfg.adam_epsilon,
+                     cfg.weight_decay, cfg.max_grad_norm, -lrs[0], -lrs[1]],
+                    dtype=np.float32))
+            else:
+                self._step_plain(grads, g_norm, bc1, bc2, lrs)
             self.count = count_inc
+
+    def _step_plain(self, grads, g_norm, bc1: float, bc2: float,
+                    lrs: List[float]) -> None:
+        """The update leaf by leaf in eager ops: the CPU path, and the
+        reference of the kernel's arithmetic."""
+        cfg = self.cfg
+        b1, b2, eps, wd = (cfg.adam_beta1, cfg.adam_beta2,
+                           cfg.adam_epsilon, cfg.weight_decay)
+        clip = not bool(g_norm < cfg.max_grad_norm)
+        i = 0
+        for label, lr in zip(LABELS, lrs):
+            for _ in self.groups.get(label, ()):
+                p = self.local[i]
+                g = (grads[i].float() if grads[i] is not None
+                     else torch.zeros_like(p, dtype=torch.float32))
+                if clip:
+                    g = (g / g_norm.to(g.device)) * cfg.max_grad_norm
+                mu = (1 - b1) * g + b1 * self.mu[i].float()
+                nu = (1 - b2) * g * g + b2 * self.nu[i]
+                upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+                upd = upd + wd * p
+                p.add_((-lr * upd).to(p.dtype))
+                self.mu[i] = mu.to(self.mu[i].dtype)
+                self.nu[i] = nu
+                i += 1
 
 
 class MultiSteps:
@@ -206,7 +257,8 @@ class MultiSteps:
         n = self.mini_step
         with span("train.optimizer"):
             for a, g in zip(self.acc, grads):
-                a.add_((g.float() - a) / (n + 1))
+                g = g.float() if g is not None else torch.zeros_like(a)
+                a.add_((g - a) / (n + 1))
         if n == self.k - 1:
             self.inner.step(self.acc)
             for a in self.acc:

@@ -273,8 +273,9 @@ class Trainer:
                     sync_whole_grads([local(p.grad) for _, p in whole],
                                      [n.endswith(("lora_A", "lora_B"))
                                       for n, _ in whole], self.tp_group)
-            grads = [local(p.grad) if p.grad is not None
-                     else torch.zeros_like(local(p)) for p in params]
+            # a parameter without a gradient steps on zeros (None)
+            grads = [local(p.grad) if p.grad is not None else None
+                     for p in params]
             parts = {k: v.detach() for k, v in parts.items()}
             inner = getattr(self.tx, "inner", self.tx)  # under MultiSteps
             with span("train.grad_norm"):
@@ -289,7 +290,10 @@ class Trainer:
                           if n.endswith(("lora_A", "lora_B")) else n, p)
                          for n, p in self.model.named_parameters()), sep="/",
                         group=self.shard_group, tp_group=self.tp_group))
-            self.tx.step(grads)
+            # the update's clip takes this norm of the same gradients; under
+            # MultiSteps the inner step takes the norm of their running mean
+            self.tx.step(grads, **({"g_norm": parts["grad_norm"]}
+                                   if self.tx is inner else {}))
             for p in params:
                 p.grad = None
             return parts

@@ -35,6 +35,8 @@ from typing import (Dict, Iterable, List, NamedTuple, Optional, Sequence,
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+from ..kernels import route
+
 
 class MetricsLogger:
     def __init__(self, output_dir: str, run_name: str = "run",
@@ -214,37 +216,48 @@ def _norms(parts: Sequence[Sequence[Tuple[torch.Tensor, bool]]],
     squares of the TP-sharded tensors (this rank's slices) added over
     ``tp_group`` in one all-reduce, those of the others counted once, then
     every part's sum added over ``group`` (the FSDP2 shards) in one
-    all-reduce."""
-    tp_sq = [_sq_sum([t for t, sharded in part if sharded]) for part in parts]
-    rep_sq = [_sq_sum([t for t, sharded in part if not sharded])
-              for part in parts]
-    dev = next((s.device for s in tp_sq + rep_sq if s is not None),
-               torch.device("cpu"))
-    zero = torch.zeros((), device=dev)
-    tp_tot = torch.stack([zero if s is None else s for s in tp_sq])
+    all-reduce. The sums of CUDA tensors are one launch of
+    ``sq_norm_multi`` (``ops/multi_tensor.py``), of CPU tensors
+    ``_sq_sum``'s."""
+    first = next((t for part in parts for t, _ in part), None)
+    if first is not None and route(first, "global_norm") == "kernel":
+        from ..ops.multi_tensor import sq_norm_multi
+
+        tp_tot, rep_tot = sq_norm_multi(parts, first.device)
+    else:
+        tp_sq = [_sq_sum([t for t, sharded in part if sharded])
+                 for part in parts]
+        rep_sq = [_sq_sum([t for t, sharded in part if not sharded])
+                  for part in parts]
+        dev = next((s.device for s in tp_sq + rep_sq if s is not None),
+                   torch.device("cpu"))
+        zero = torch.zeros((), device=dev)
+        tp_tot = torch.stack([zero if s is None else s for s in tp_sq])
+        rep_tot = torch.stack([zero if s is None else s for s in rep_sq])
     if tp_group is not None:
         torch.distributed.all_reduce(tp_tot, group=tp_group)
-    total = tp_tot + torch.stack([zero if s is None else s for s in rep_sq])
+    total = tp_tot + rep_tot
     if group is not None:
         torch.distributed.all_reduce(total, group=group)
     return total.sqrt()
 
 
-def global_norm(tensors: Iterable[torch.Tensor], group=None,
+def global_norm(tensors: Iterable[Optional[torch.Tensor]], group=None,
                 sharded: Optional[Sequence[bool]] = None,
                 tp_group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32
-    (optax.global_norm). With ``group``, the tensors are this rank's shards
-    of tensors sharded over the group's ranks (FSDP2); with ``tp_group``,
-    those flagged in ``sharded`` are this rank's slices of tensors split
-    over the ``model`` group (tensor parallelism), the others whole on
-    every rank of it. One all-reduce per group; every rank gets the norm
-    of the whole tensors."""
+    (optax.global_norm); a None tensor counts as zeros. With ``group``, the
+    tensors are this rank's shards of tensors sharded over the group's
+    ranks (FSDP2); with ``tp_group``, those flagged in ``sharded`` are this
+    rank's slices of tensors split over the ``model`` group (tensor
+    parallelism), the others whole on every rank of it. One all-reduce per
+    group; every rank gets the norm of the whole tensors."""
     tensors = list(tensors)
-    if not tensors:
-        return torch.zeros(())
     flags = sharded if sharded is not None else [False] * len(tensors)
-    return _norms([list(zip(tensors, flags))], group, tp_group)[0]
+    pairs = [(t, f) for t, f in zip(tensors, flags) if t is not None]
+    if not pairs:
+        return torch.zeros(())
+    return _norms([pairs], group, tp_group)[0]
 
 
 def module_grad_norms(named: Iterable[Tuple[str, torch.nn.Parameter]],
