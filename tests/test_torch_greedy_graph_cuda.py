@@ -67,7 +67,8 @@ def _gen_cfg():
 
 
 def _uncaptured(dec, bufs_cache, bufs_cross):
-    """A copy of pooled buffers and the step on it, run as it is."""
+    """A copy of pooled buffers, a plain cache dict, for the step run as it
+    is."""
     cache = {k: c.clone() for k, c in bufs_cache.items()}
     cross = [tuple(t.clone() for t in c) for c in bufs_cross]
     return cache, cross
@@ -87,7 +88,7 @@ def test_replay_matches_uncaptured_step(dec, cuda, b):
         ref = dec.decoder_step(ids[:, pos:pos + 1].contiguous(), pos_t,
                                ref_cache, ref_cross)
         assert torch.equal(h, ref), pos
-    assert next(iter(dec._step_pools.values())).graph is not None
+    assert cache.graph is not None and cache.cross is cross
     for k in ("k", "v"):
         assert torch.equal(cache[k], ref_cache[k])
 
@@ -102,7 +103,7 @@ def test_greedy_with_graph_matches_uncaptured(dec, cuda, b, monkeypatch):
     def uncaptured(bufs, input_ids, pos):
         bufs.ids.copy_(input_ids)
         bufs.pos.fill_(pos)
-        return dec.decoder_step(bufs.ids, bufs.pos, bufs.cache, bufs.cross)
+        return dec.decoder_step(bufs.ids, bufs.pos, bufs, bufs.cross)
 
     monkeypatch.setattr(dec, "_buffered_step", uncaptured)
     ref = greedy_decode(model, _gen_cfg(), enc, ids[:, :PROMPT], NEW)
@@ -136,7 +137,7 @@ def test_replay_reads_the_parameters(dec, cuda):
     dec.decoder_cached(ids[:, :PROMPT], 0, cache, cross)
     tok = ids[:, pos:pos + 1]
     before = dec.decoder_cached(tok, pos, cache, cross).clone()
-    bufs = next(iter(dec._step_pools.values()))
+    bufs = cache
     graph = bufs.graph
     dec.layers[1].fc2.weight.mul_(0.5)
     dec.layer_norm.bias.add_(0.25)
@@ -148,7 +149,7 @@ def test_replay_reads_the_parameters(dec, cuda):
 
     dec.to(torch.float32)       # the compute dtype stays bf16
     cache, cross = dec.greedy_buffers(enc, b, PROMPT + NEW, False)
-    assert bufs.graph is None and len(dec._step_pools) == 1
+    assert cache is bufs and bufs.graph is None and len(dec._step_pools) == 1
     dec.decoder_cached(ids[:, :PROMPT], 0, cache, cross)
     moved = dec.decoder_cached(tok, pos, cache, cross).clone()
     assert bufs.graph is not None and bufs.graph is not graph

@@ -132,7 +132,7 @@ def test_buffers_reused_and_refilled(model):
 
     def spy(*a, **k):
         out = orig(*a, **k)
-        seen.append(W._buffer_ptrs(*out))
+        seen.append(out)
         return out
 
     m.decoder.greedy_buffers = spy
@@ -143,7 +143,10 @@ def test_buffers_reused_and_refilled(model):
         greedy_decode(m, gen_cfg, _enc(3, 2), _prompt(tcfg, 2), 20)
     finally:
         del m.decoder.greedy_buffers
-    assert seen[0] == seen[1] and seen[2] != seen[0]
+    assert seen[0][0] is seen[1][0] and seen[0][1] is seen[1][1]
+    assert seen[2][0] is not seen[0][0]
+    assert all(isinstance(c, W._StepBuffers) and x is c.cross
+               for c, x in seen)
     assert len(m.decoder._step_pools) == 2
     assert len(fresh.decoder._step_pools) == 0     # a copy starts with none
     ref = greedy_decode(fresh, gen_cfg, _enc(2, 3),
@@ -160,9 +163,10 @@ def _eager_call(case, dec, ids, cache, cross):
         # the beam's standalone permute: a new cache dict every step
         return dec.decoder_cached(ids, 3, {k: c.clone() for k, c in
                                            cache.items()}, cross)
-    if case == "beam_src":
-        return dec.decoder_cached(ids, 3, cache, cross,
-                                  beam_src=torch.tensor([1, 0, 2]))
+    if case == "foreign_cross":
+        # the pooled cache with a cross-KV that is not its own
+        return dec.decoder_cached(ids, 3, cache, [
+            tuple(t.clone() for t in c) for c in cross])
     if case == "alignment_slots":
         h, _ = dec.decoder_cached(
             ids, 3, cache, cross,
@@ -175,12 +179,13 @@ def _eager_call(case, dec, ids, cache, cross):
     return dec.decoder_cached(ids.repeat(1, 2), 3, cache, cross)[:, -1:]
 
 
-@pytest.mark.parametrize("case", ["fresh_cache", "beam_src",
+@pytest.mark.parametrize("case", ["fresh_cache", "foreign_cross",
                                   "alignment_slots", "grad", "two_tokens"])
 def test_other_calls_take_the_eager_step(model, case):
-    """A fresh cache dict (the beam's standalone permute), ``beam_src``,
-    ``alignment_slots``, autograd or more than one token: the eager body
-    runs, and no graph replay is counted."""
+    """A fresh cache dict (the beam's standalone permute), the pooled cache
+    with another cross-KV than its own, ``alignment_slots``, autograd or
+    more than one token: the eager body runs, and no graph replay is
+    counted."""
     _, _, tcfg, m = model
     dec = m.decoder
     cache, cross = dec.greedy_buffers(_enc(4, 3), 3, 8, False)

@@ -1,8 +1,8 @@
 """The port's KV-cache reorder (ops/reorder.py) against the JAX package's:
 the plain versions of the two CUDA kernels bit-exact against the Pallas
 kernels run in interpret mode, with repeated source rows; the one-hot
-product in all three layouts; and the reorder switch's 'auto', explicit and
-raw dispatch."""
+product and the in-place permutes of 'fused' / 'fused_onehot' in all three
+layouts; and the reorder switch's 'auto', explicit and raw dispatch."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -56,19 +56,33 @@ def test_plain_reorder_equals_interpreted_pallas(layout, dtype):
     np.testing.assert_array_equal(_np(tc), np.asarray(jc.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("impl", ["onehot", "fused", "fused_onehot"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("layout", sorted(SHAPES))
-def test_onehot_reorder_matches_jax_and_the_gather(layout, dtype):
+def test_onehot_reorder_matches_jax_and_the_gather(layout, dtype, impl):
+    """The one-hot product against the JAX package's and the row gather;
+    'fused' and 'fused_onehot' through ``beam_reorder``, which must permute
+    the cache in place to the same rows."""
     jc, tc = _cache(layout, dtype)
     ref = JR._reorder_onehot(jnp.asarray(CHOSEN), jc, N, layout)
-    out = TR._reorder_onehot(torch.from_numpy(CHOSEN), tc, N, layout)
+    dim = {"bhtd": 1, "tbhd": 2, "thbd": 3}[layout]
+    gather = _np(tc.index_select(dim, torch.from_numpy(IDX).long()))
+    if impl == "onehot":
+        out = TR._reorder_onehot(torch.from_numpy(CHOSEN), tc, N, layout)
+    else:
+        prev = TR.get_reorder_impl(raw=True)
+        TR.set_reorder_impl(impl)
+        try:
+            out = TR.beam_reorder(tc, torch.from_numpy(CHOSEN), N,
+                                  torch.from_numpy(IDX), layout)
+        finally:
+            TR.set_reorder_impl(prev)
+        assert out is tc
     assert out.dtype == tc.dtype
     np.testing.assert_array_equal(_np(out),
                                   np.asarray(ref.astype(jnp.float32)))
     # exact: one nonzero per output row, the same rows as the gather
-    dim = {"bhtd": 1, "tbhd": 2, "thbd": 3}[layout]
-    np.testing.assert_array_equal(
-        _np(out), _np(tc.index_select(dim, torch.from_numpy(IDX).long())))
+    np.testing.assert_array_equal(_np(out), gather)
 
 
 def test_impl_values_match_the_jax_package():

@@ -8,11 +8,10 @@ KV-cache strategy of its reorder switch (ops/reorder.py, beam.py:197-241):
   b's K/V at position t, and each step's self-attention reads through it
   (models/whisper.py::decoder_cached_ancestry; the CUDA ancestry kernel for
   '_pallas', its plain version for 'ancestry'). 'bhtd' layout only.
-- 'pallas' (the default elsewhere) and 'onehot': a standalone permute of
-  ``cache["k"]`` and ``cache["v"]`` every step (``beam_reorder``; the CUDA
-  kv_reorder kernels for 'pallas' in the 'bhtd' and 'tbhd' layouts).
-- 'fused' / 'fused_onehot': ``decoder_cached`` applies the permutation to
-  each layer's cache before its update (``beam_src``).
+- 'pallas' (the default elsewhere), 'onehot', 'fused' and 'fused_onehot':
+  a permute of ``cache["k"]`` and ``cache["v"]`` every step before the
+  decoder step (``beam_reorder``; the CUDA kv_reorder kernels for 'pallas'
+  in the 'bhtd' and 'tbhd' layouts; in place for the 'fused' two).
 
 HF beam semantics as the JAX package: 2n candidates per audio row, the
 finished pool from the top-n candidates, length penalty
@@ -178,19 +177,11 @@ def beam_search(
         # reorder the cache (or its ancestry map) and the CTC state by the
         # flat beam index
         flat_beam_idx = (group_base + chosen_beam).reshape(bb)
-        beam_src = None
         if ancestry:
             # append-only cache: the ancestry map inherits the chosen
             # ancestor's history and claims this step's slot for the row
             hist = hist[flat_beam_idx]
             hist[:, cur_len] = group_rows
-        elif impl == "fused":
-            beam_src = flat_beam_idx
-        elif impl == "fused_onehot":
-            # block-diagonal (Bb, Bb) one-hot: rows only ever pick a source
-            # within their own audio group
-            beam_src = (torch.arange(bb, device=dev)[None, :]
-                        == flat_beam_idx[:, None]).to(torch.int8)
         else:
             cache = {key: beam_reorder(c, chosen_beam, n, flat_beam_idx,
                                        layout)
@@ -205,7 +196,7 @@ def beam_search(
                 attn_impl="kernel" if impl == "ancestry_pallas" else "plain")
         else:
             hidden = dec.decoder_cached(chosen_tok.reshape(bb, 1), cur_len,
-                                        cache, cross_kv, beam_src=beam_src)
+                                        cache, cross_kv)
         logits = dec.lm_logits(hidden[:, -1], w_logits)
         cur_len += 1
 

@@ -4,9 +4,10 @@ Counterpart of ts_asr_whisper_tpu/decoding/greedy.py: the
 ``lax.while_loop`` becomes a Python loop over a preallocated token buffer
 that stops once every row has emitted EOS. Cross-attention K/V are computed
 once per window (int8 under ``gen_cfg.cross_kv_quant``) into the decoder's
-pooled buffers (``WhisperDecoder.greedy_buffers``), on which each step's
-decoder runs as a replayed CUDA graph on the card; the self-attention cache
-is written in place. The host reads whether every row has finished one step
+pooled buffers (``WhisperDecoder.greedy_buffers``). Its self-attention
+cache is the pooled entry itself, written in place: ``decoder_cached``
+knows it by its type and runs each step on it as a replayed CUDA graph on
+the card. The host reads whether every row has finished one step
 late: each step copies ``finished.all()`` to the host without waiting, and
 the next step but one waits for that copy (the ``greedy.stop_check`` span
 beside each step's ``greedy.step``), so the host launches a step while the

@@ -50,11 +50,6 @@ CrossKV = List[Union[Tuple[torch.Tensor, torch.Tensor],
 # the JAX package's A/B switches, kept for the standalone-permute beam path.
 KV_LAYOUTS = ("bhtd", "tbhd", "thbd")
 _KV_LAYOUT = "bhtd"
-# beam_src, per layout: the one-hot product (whisper.py:457-458) and the
-# hypothesis dim of one layer's cache for the row gather (:462-470)
-_ONEHOT_EQ = {"bhtd": "ob,bhtd->ohtd", "tbhd": "ob,tbhd->tohd",
-              "thbd": "ob,thbd->thod"}
-_HYP_DIM = {"bhtd": 0, "tbhd": 1, "thbd": 2}
 
 
 def set_kv_cache_layout(name: str) -> None:
@@ -290,30 +285,20 @@ def cross_attention(q: torch.Tensor, cross, dtype) -> torch.Tensor:
     return torch.matmul(pv.to(dtype), cross["v_q"].to(dtype))
 
 
-def _buffer_ptrs(kv_cache: KVCache, cross_kv: CrossKV) -> Tuple[int, ...]:
-    """The addresses of a self-attention cache and a cross-KV cache."""
-    return (kv_cache["k"].data_ptr(), kv_cache["v"].data_ptr(),
-            *(t.data_ptr() for c in cross_kv
-              for t in (c.values() if isinstance(c, dict) else c)))
-
-
-class _StepBuffers:
+class _StepBuffers(dict):
     """The fixed-address buffers of the single-token step at one key: the
-    self-attention cache, the cross-KV, the step's tokens (B, 1) and its
-    position (1,) on the device; and the step's CUDA graph over them, with
-    the addresses of the parameters it was captured on."""
+    self-attention cache itself ("k", "v"), its cross-KV, the step's tokens
+    (B, 1) and its position (1,) on the device; and the step's CUDA graph
+    over them, with the addresses of the parameters it was captured on.
+    ``decoder_cached`` knows such a cache by its type."""
 
     def __init__(self, kv_cache: KVCache, cross_kv: CrossKV, batch: int,
                  device: torch.device):
-        self.cache, self.cross = kv_cache, cross_kv
-        self.ptrs = _buffer_ptrs(kv_cache, cross_kv)
+        super().__init__(kv_cache)
+        self.cross = cross_kv
         self.ids = torch.zeros((batch, 1), dtype=torch.long, device=device)
         self.pos = torch.zeros((1,), dtype=torch.long, device=device)
         self.graph = self.out = self.params = None
-
-    def holds(self, kv_cache: KVCache, cross_kv: CrossKV) -> bool:
-        return (kv_cache["k"].data_ptr() == self.ptrs[0]
-                and _buffer_ptrs(kv_cache, cross_kv) == self.ptrs)
 
 
 class _StepPools(dict):
@@ -422,10 +407,11 @@ class WhisperDecoder(nn.Module):
         ``encoder_hidden`` (int8 under ``quant``), in buffers of this
         decoder's own that keep their addresses from one decode to the next:
         one set per key (batch rows, cache length, encoder frames, cross-KV
-        kind, compute dtype, cache layout, device). ``decoder_cached`` runs
-        its single-token steps on them through ``decoder_step``, replayed
-        as a CUDA graph on the card. A decoder split over a ``model`` group
-        or into DTensors gets fresh buffers, which take the eager step."""
+        kind, compute dtype, cache layout, device). The cache is the pooled
+        ``_StepBuffers`` entry, on which ``decoder_cached`` runs its
+        single-token steps through ``decoder_step``, replayed as a CUDA
+        graph on the card. A decoder split over a ``model`` group or into
+        DTensors gets a plain cache dict, which takes the eager step."""
         cross = self.precompute_cross_kv(encoder_hidden)
         if quant:
             cross = quantize_cross_kv(cross)
@@ -440,7 +426,7 @@ class WhisperDecoder(nn.Module):
             bufs = self._step_pools[key] = _StepBuffers(
                 self.init_kv_cache(batch, max_len, dev), cross, batch, dev)
         else:
-            for c in bufs.cache.values():
+            for c in bufs.values():
                 c.zero_()
             for dst, src in zip(bufs.cross, cross):
                 if isinstance(dst, dict):
@@ -453,7 +439,7 @@ class WhisperDecoder(nn.Module):
             # change of the adapters
             bufs.graph = bufs.out = None
             bufs.params = params
-        return bufs.cache, bufs.cross
+        return bufs, bufs.cross
 
     def _static_params(self) -> Optional[Tuple[int, ...]]:
         """The parameters' addresses, or None if a layer is split over a
@@ -467,7 +453,6 @@ class WhisperDecoder(nn.Module):
 
     def decoder_cached(self, input_ids: torch.Tensor, pos: int,
                        kv_cache: KVCache, cross_kv: CrossKV,
-                       beam_src: Optional[torch.Tensor] = None,
                        alignment_slots: Optional[torch.Tensor] = None):
         """Run T_new tokens at positions pos.. through the decoder, writing
         their K/V into ``kv_cache`` (current layout) in place
@@ -483,63 +468,38 @@ class WhisperDecoder(nn.Module):
         int8 cache cannot serve it (ValueError, as the JAX package
         asserts).
 
-        ``beam_src`` applies a beam permutation inside the step: each
-        layer's cache rows are first replaced, in place, by rows
-        ``beam_src[b]`` (a (B,) row gather) or by the product with a (B, B)
-        one-hot (whisper.py:453-470).
-
         Query i sees cache keys j <= pos + i (whisper.py:443-446), with fp32
         scores masked by finfo(float32).min in every layout; the keys past
         pos + T_new are left out instead of masked, which changes no value:
         a masked key's probability is exactly 0.
 
-        One token on the buffers of ``greedy_buffers``, with neither
-        ``beam_src`` nor ``alignment_slots`` and no gradient, runs
-        ``decoder_step`` instead: on the card as a CUDA graph, captured the
-        first time its buffers are used and replayed from then on. Its
-        hidden state is then the graph's output buffer, which the next step
-        on the same buffers overwrites."""
-        if (beam_src is None and alignment_slots is None
-                and input_ids.shape[-1] == 1 and not torch.is_grad_enabled()):
-            bufs = next((b for b in self._step_pools.values()
-                         if b.holds(kv_cache, cross_kv)), None)
-            if bufs is not None:
-                return self._buffered_step(bufs, input_ids, pos)
+        One token on a cache of ``greedy_buffers`` with its own cross-KV,
+        without ``alignment_slots`` and no gradient, runs ``decoder_step``
+        instead: on the card as a CUDA graph, captured the first time its
+        buffers are used and replayed from then on. Its hidden state is
+        then the graph's output buffer, which the next step on the same
+        buffers overwrites."""
+        if (isinstance(kv_cache, _StepBuffers) and cross_kv is kv_cache.cross
+                and alignment_slots is None and input_ids.shape[-1] == 1
+                and not torch.is_grad_enabled()):
+            return self._buffered_step(kv_cache, input_ids, pos)
         if alignment_slots is not None and isinstance(cross_kv[0], dict):
             raise ValueError(
                 "alignment collection needs the exact cross-KV cache")
-        dt = self.cfg.compute_dtype
-        layout = _KV_LAYOUT
         t_new = input_ids.shape[-1]
-        probs = None
         end = pos + t_new
         x = self.embed(input_ids, pos)
         key_pos = torch.arange(end, device=x.device)
         q_pos = pos + torch.arange(t_new, device=x.device)
         self_mask = key_pos[None, :] <= q_pos[:, None]      # (T_new, end)
-        if beam_src is not None and beam_src.ndim == 2:
-            onehot = beam_src.to(dt)
-        for li, layer in enumerate(self.layers):
-            cache_k, cache_v = kv_cache["k"][li], kv_cache["v"][li]
-            if beam_src is not None:
-                for c in (cache_k, cache_v):
-                    if beam_src.ndim == 2:
-                        c.copy_(torch.einsum(_ONEHOT_EQ[layout], onehot, c))
-                    else:
-                        c.copy_(c.index_select(_HYP_DIM[layout], beam_src))
-            h = layer.self_attn_layer_norm(x)
-            q = layer.self_attn.query(h, dt)
-            k_new, v_new = layer.self_attn.keys_values(h, dt)
-            ks, vs = _as_bhtd(cache_k, layout), _as_bhtd(cache_v, layout)
+
+        def attend(q, k_new, v_new, ks, vs):
             ks[:, :, pos:end] = k_new
             vs[:, :, pos:end] = v_new
-            attn = plain_sdpa(q, ks[:, :, :end], vs[:, :, :end], self_mask)
-            x = x + layer.self_attn.out(attn, dt)
-            sel = None if alignment_slots is None else alignment_slots[li]
-            x, sel_probs = self._cross_and_mlp(layer, x, cross_kv[li], sel)
-            if sel_probs is not None:
-                probs = sel_probs if probs is None else probs + sel_probs
-        x = self.layer_norm(x)
+            return plain_sdpa(q, ks[:, :, :end], vs[:, :, :end], self_mask)
+
+        x, probs = self._cached_layers(x, kv_cache, attend, cross_kv,
+                                       alignment_slots)
         return x if alignment_slots is None else (x, probs)
 
     def decoder_step(self, ids: torch.Tensor, pos: torch.Tensor,
@@ -553,24 +513,53 @@ class WhisperDecoder(nn.Module):
         (probability exactly 0), as the JAX loop computes it
         (whisper.py:443-446). Returns the final hidden (B, 1, D)."""
         dt = self.cfg.compute_dtype
-        layout = _KV_LAYOUT
         x = (self.embed_tokens.weight.index_select(0, ids[:, 0]).to(dt)
              + self.embed_positions.weight.index_select(0, pos).to(dt))
         x = x[:, None]
-        max_len = _as_bhtd(kv_cache["k"][0], layout).shape[2]
+        max_len = _as_bhtd(kv_cache["k"][0], _KV_LAYOUT).shape[2]
         mask = torch.arange(max_len, device=ids.device)[None, :] \
             <= pos[:, None]                                   # (1, T)
+
+        def attend(q, k_new, v_new, ks, vs):
+            ks.index_copy_(2, pos, k_new)
+            vs.index_copy_(2, pos, v_new)
+            return plain_sdpa(q, ks, vs, mask)
+
+        return self._cached_layers(x, kv_cache, attend, cross_kv)[0]
+
+    def _cached_layers(self, x: torch.Tensor, kv_cache: KVCache,
+                       attend_self, cross_kv: CrossKV,
+                       alignment_slots: Optional[torch.Tensor] = None):
+        """The decoder's layers over a self-attention cache, then the final
+        layer norm. Per layer: the pre-norm, q and the new K/V, then
+        ``attend_self(q, k_new, v_new, ks, vs)`` with the layer's cache
+        viewed as (B, H, T, hd), which writes the new K/V into it and
+        returns the attention's output; the output projection and residual;
+        the cross-attention and MLP blocks. Returns (hidden, the alignment
+        slots' probabilities summed over the layers, or None)."""
+        dt = self.cfg.compute_dtype
+        probs = None
         for li, layer in enumerate(self.layers):
             h = layer.self_attn_layer_norm(x)
             q = layer.self_attn.query(h, dt)
             k_new, v_new = layer.self_attn.keys_values(h, dt)
-            ks = _as_bhtd(kv_cache["k"][li], layout)
-            vs = _as_bhtd(kv_cache["v"][li], layout)
-            ks.index_copy_(2, pos, k_new)
-            vs.index_copy_(2, pos, v_new)
-            x = x + layer.self_attn.out(plain_sdpa(q, ks, vs, mask), dt)
-            x = self._cross_and_mlp(layer, x, cross_kv[li])[0]
-        return self.layer_norm(x)
+            attn = attend_self(q, k_new, v_new,
+                               _as_bhtd(kv_cache["k"][li], _KV_LAYOUT),
+                               _as_bhtd(kv_cache["v"][li], _KV_LAYOUT))
+            x = x + layer.self_attn.out(attn, dt)
+            h = layer.encoder_attn_layer_norm(x)
+            q = layer.encoder_attn.query(h, dt)
+            x = x + layer.encoder_attn.out(
+                cross_attention(q, cross_kv[li], dt), dt)
+            x = x + layer.mlp(layer.final_layer_norm(x), dt)
+            if alignment_slots is not None:
+                scores = torch.matmul(
+                    q.float(), cross_kv[li][0].float().transpose(-1, -2))
+                sel = torch.einsum("sh,bhqt->bsqt",
+                                   alignment_slots[li].float(),
+                                   torch.softmax(scores, dim=-1))
+                probs = sel if probs is None else probs + sel
+        return self.layer_norm(x), probs
 
     def _buffered_step(self, bufs: _StepBuffers, input_ids: torch.Tensor,
                        pos: int) -> torch.Tensor:
@@ -579,8 +568,7 @@ class WhisperDecoder(nn.Module):
         bufs.ids.copy_(input_ids)
         bufs.pos.fill_(pos)
         if bufs.ids.device.type != "cuda":
-            return self.decoder_step(bufs.ids, bufs.pos, bufs.cache,
-                                     bufs.cross)
+            return self.decoder_step(bufs.ids, bufs.pos, bufs, bufs.cross)
         if bufs.graph is None:
             self._capture(bufs)
         bufs.graph.replay()
@@ -591,7 +579,7 @@ class WhisperDecoder(nn.Module):
         """Capture ``decoder_step`` on ``bufs`` as a CUDA graph. It reads the
         parameters where they lie at each replay, so in-place updates (the
         optimizer's) reach it; only its intermediates are its own."""
-        step = partial(self.decoder_step, bufs.ids, bufs.pos, bufs.cache,
+        step = partial(self.decoder_step, bufs.ids, bufs.pos, bufs,
                        bufs.cross)
         with torch.cuda.device(bufs.ids.device):
             # one run on a side stream first, as torch.cuda.graphs asks, so
@@ -607,22 +595,6 @@ class WhisperDecoder(nn.Module):
                 bufs.out = step()
         bufs.graph = graph
         count("greedy.graph_captures")
-
-    def _cross_and_mlp(self, layer: DecoderLayer, x: torch.Tensor, cross,
-                       sel: Optional[torch.Tensor] = None):
-        """Cross-attention and MLP blocks of one layer: (x, None), or with
-        the (S, H) selection ``sel`` (x, its slots' probabilities)."""
-        dt = self.cfg.compute_dtype
-        h = layer.encoder_attn_layer_norm(x)
-        q = layer.encoder_attn.query(h, dt)
-        attn = cross_attention(q, cross, dt)
-        x = x + layer.encoder_attn.out(attn, dt)
-        x = x + layer.mlp(layer.final_layer_norm(x), dt)
-        if sel is None:
-            return x, None
-        scores = torch.matmul(q.float(), cross[0].float().transpose(-1, -2))
-        return x, torch.einsum("sh,bhqt->bsqt", sel.float(),
-                               torch.softmax(scores, dim=-1))
 
     def decoder_cached_ancestry(self, input_ids: torch.Tensor, pos: int,
                                 kv_cache: KVCache, cross_kv: CrossKV,
@@ -643,16 +615,12 @@ class WhisperDecoder(nn.Module):
             f"{_KV_LAYOUT!r}")
         attend = {"kernel": ancestry_attention,
                   "plain": ancestry_attention_reference}[attn_impl]
-        dt = self.cfg.compute_dtype
+
+        def attend_self(q, k_new, v_new, ks, vs):
+            attn = attend(q, k_new, v_new, ks, vs, hist, pos, n)
+            ks[:, :, pos] = k_new[:, :, 0]
+            vs[:, :, pos] = v_new[:, :, 0]
+            return attn
+
         x = self.embed(input_ids, pos)
-        for li, layer in enumerate(self.layers):
-            h = layer.self_attn_layer_norm(x)
-            q = layer.self_attn.query(h, dt)
-            k_new, v_new = layer.self_attn.keys_values(h, dt)
-            cache_k, cache_v = kv_cache["k"][li], kv_cache["v"][li]
-            attn = attend(q, k_new, v_new, cache_k, cache_v, hist, pos, n)
-            cache_k[:, :, pos] = k_new[:, :, 0]
-            cache_v[:, :, pos] = v_new[:, :, 0]
-            x = x + layer.self_attn.out(attn, dt)
-            x = self._cross_and_mlp(layer, x, cross_kv[li])[0]
-        return self.layer_norm(x)
+        return self._cached_layers(x, kv_cache, attend_self, cross_kv)[0]

@@ -12,9 +12,11 @@ cache by the chosen ancestor rows, unless the impl avoids the permute:
   the one-hot product.
 - 'onehot': the block-diagonal one-hot product, exact in any dtype (one
   nonzero per output row).
-- 'fused' / 'fused_onehot': no standalone permute; decoding/beam.py hands
-  the permutation to ``decoder_cached`` as ``beam_src`` (a row gather or a
-  (Bb, Bb) one-hot), which applies it per layer before the cache update.
+- 'fused' / 'fused_onehot': the permute in place, into the cache's own
+  storage: a row gather along the hypothesis dim ('fused') or the one-hot
+  product ('fused_onehot'). The JAX package applies them per layer inside
+  its decoder step; the caches of the layers are independent, so permuting
+  all of them before the step gives the same values, and both are exact.
 - 'ancestry' / 'ancestry_pallas': an append-only cache that is never
   permuted (``decoder_cached_ancestry``); '_pallas' reads it through the
   ancestry kernel, 'ancestry' through its plain version, also on the card.
@@ -37,6 +39,8 @@ from ..kernels import DTYPE_CODES, launch_counts, route
 IMPLS = ("auto", "onehot", "pallas", "fused", "fused_onehot", "ancestry",
          "ancestry_pallas")
 _IMPL = "auto"
+# the hypothesis dim of a whole (L, ...) cache tensor, per layout
+_HYP_DIM = {"bhtd": 1, "tbhd": 2, "thbd": 3}
 
 
 def set_reorder_impl(impl: str) -> None:
@@ -147,14 +151,20 @@ def _reorder_onehot(chosen_beam: torch.Tensor, cache: torch.Tensor, n: int,
 def beam_reorder(cache: torch.Tensor, chosen_beam: torch.Tensor, n: int,
                  flat_idx: torch.Tensor, layout: str = "bhtd"
                  ) -> torch.Tensor:
-    """Permute the hypotheses of one self-attention cache tensor.
+    """Permute the hypotheses of one self-attention cache tensor: into a new
+    tensor, or in place for 'fused' / 'fused_onehot' (which return
+    ``cache``).
 
     chosen_beam: (B, n) source beam within each audio row's group; flat_idx:
     (Bb,) the same permutation as absolute rows. Branches on the resolved
     impl, so 'auto' and an explicit setting take the same path."""
-    if get_reorder_impl(device=cache.device) == "pallas" \
-            and layout != "thbd":
+    impl = get_reorder_impl(device=cache.device)
+    if impl == "fused":
+        return cache.copy_(cache.index_select(_HYP_DIM[layout],
+                                              flat_idx.long()))
+    if impl == "pallas" and layout != "thbd":
         if layout == "tbhd":
             return reorder_tbhd(cache, flat_idx)
         return reorder_bhtd(cache, flat_idx)
-    return _reorder_onehot(chosen_beam, cache, n, layout)
+    out = _reorder_onehot(chosen_beam, cache, n, layout)
+    return cache.copy_(out) if impl == "fused_onehot" else out
